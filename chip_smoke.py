@@ -1,0 +1,695 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+Run from the repo root with one card: `python3 chip_smoke.py`. It needs a
+CUDA device and nvcc, and imports torch, numpy, the stdlib and
+`zero_latency_yolo_tpu_torch` only. Phases, in order; any failure raises
+and the script exits non-zero:
+
+1. device: a CUDA device must be present; prints the card's name and power
+   limit as nvidia-smi reports them.
+2. build: nvcc builds csrc/*.cu into one library (ops/_build.py).
+3. kernels: each CUDA kernel against its plain PyTorch version on the card,
+   on the inputs the serving step gives it (recorded from one plain step of
+   the deployed config at batch 8: 24 1x1 convs, 39 bias+SiLU epilogues,
+   one NMS scan), in bf16 and f32, plus the NMS scan on seeded boxes.
+   Times (CUDA events, after warm-up) for the kernel, its plain version and
+   the one PyTorch call that computes the same function, beside the least
+   time the card could take for the same bytes and operations.
+4. main path: the deployed config (configs/examples/server-cs16-416.json:
+   yolov8n, 416, bf16, real weights) through InferenceEngine.infer_batch and
+   dispatch/complete_many, with every kernel's launch count reset just
+   before and read just after. Then the f32 step with kernels against the
+   f32 step with plain versions (counts and classes equal, boxes and scores
+   within 1e-3), the bf16 detection gate against f32 (twins with IoU >
+   0.85, the same class, confidence within 0.03; see bf16_gate for the
+   decisions on a threshold), and the step time per batch bucket: wall
+   time, device busy time by kernel (torch.profiler) and the idle share.
+5. report: a `kernels:` line, one JSON line of kernel numbers, and the
+   result line `{"ok": true, "device": {...}}` last.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+CONFIG = ROOT / "configs" / "examples" / "server-cs16-416.json"
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and
+# operations/s by operand type (bf16 on the tensor cores, f32 on the CUDA
+# cores). The bound of a kernel call is the larger of bytes / HBM rate and
+# operations / peak.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+
+DEVICE = "cuda"
+
+# (atol, rtol): |kernel - plain| <= atol + rtol * |plain|, with the reason:
+TOLERANCE = {
+    # f32: the same products summed in another order.
+    ("conv1x1_bias_act", "float32"): (1e-4, 1e-4),
+    # bf16: that order may move the one rounding to bf16 by one ulp.
+    ("conv1x1_bias_act", "bfloat16"): (1e-2, 2.0 ** -7),
+    # f32: the same formula; exp may differ in the last bit, which may move
+    # the rounding to bf16 by one ulp.
+    ("bias_silu", "float32"): (1e-6, 1e-6),
+    ("bias_silu", "bfloat16"): (1e-5, 2.0 ** -7),
+}
+
+KERNELS = {
+    # name: (route, source, the TPU kernel it replaces)
+    "nms_suppress": ("cuda", "zero_latency_yolo_tpu_torch/csrc/kernels.cu",
+                     "zero_latency_yolo_tpu/ops/nms_pallas.py:33"),
+    "conv1x1_bias_act": ("cuda", "zero_latency_yolo_tpu_torch/csrc/kernels.cu",
+                         "zero_latency_yolo_tpu/ops/conv1x1_pallas.py:57"),
+    "bias_silu": ("cuda", "zero_latency_yolo_tpu_torch/csrc/kernels.cu",
+                  "zero_latency_yolo_tpu/ops/act_pallas.py:40"),
+}
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+class Phase:
+    """Prints a phase's name on entry and its seconds on exit."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self) -> "Phase":
+        print(f"== phase {self.name}", flush=True)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if exc[0] is None:
+            print(f"== phase {self.name} done in "
+                  f"{time.perf_counter() - self.t0:.2f} s", flush=True)
+
+
+def synthetic_frame(width: int, height: int, seed: int = 0,
+                    t: float = 0.0) -> np.ndarray:
+    """Deterministic synthetic game frame: gradient background + moving blobs
+    (a copy of the JAX package's runtime/simulator.py synthetic_frame)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    frame = np.stack([
+        (xx * 255 // max(width - 1, 1)).astype(np.uint8),
+        (yy * 255 // max(height - 1, 1)).astype(np.uint8),
+        np.full((height, width), 64, np.uint8)], axis=-1)
+    for i in range(3):
+        cx = int((0.2 + 0.2 * i + 0.1 * np.sin(t + i)) * width) % width
+        cy = int((0.3 + 0.15 * i + 0.1 * np.cos(t + i)) * height) % height
+        hw, hh = width // 20, height // 8
+        x0, x1 = max(cx - hw, 0), min(cx + hw, width)
+        y0, y1 = max(cy - hh, 0), min(cy + hh, height)
+        frame[y0:y1, x0:x1] = rng.integers(0, 255, 3, dtype=np.uint8)
+    return frame
+
+
+def task_frames(n: int, size: int, seed: int, max_boxes: int = 4) -> np.ndarray:
+    """Frames of the task the deployed weights were trained on: a gray field
+    with colored rectangles (the scene drawing of the JAX package's
+    train/loop.py synthetic_batches, same random stream), as uint8."""
+    rng = np.random.default_rng(seed)
+    images = np.full((n, size, size, 3), 0.35, np.float32)
+    for b in range(n):
+        for _ in range(rng.integers(1, max_boxes + 1)):
+            w = rng.uniform(0.15, 0.5)
+            h = rng.uniform(0.15, 0.5)
+            cx = rng.uniform(w / 2, 1 - w / 2)
+            cy = rng.uniform(h / 2, 1 - h / 2)
+            cls = rng.integers(0, 4)
+            color = np.zeros(3, np.float32)
+            color[cls % 3] = 0.9 if cls < 3 else 0.6
+            images[b, int((cy - h / 2) * size):int((cy + h / 2) * size),
+                   int((cx - w / 2) * size):int((cx + w / 2) * size)] = color
+    return np.round(images * 255).astype(np.uint8)
+
+
+def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() over `iters` calls (CUDA events). The calls
+    are queued behind a spin of the GPU (torch.cuda._sleep) long enough for
+    the host to enqueue them all, so the host's launch overhead does not
+    show as idle time between the launches the events bracket."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0 * iters * host_ms + 1.0, 2000.0) * 2e6))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def wall_ms(torch, fn, iters: int = 10, warmup: int = 3) -> float:
+    """Mean host-clock time of fn() with the device synchronized."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def profile_step(torch, fn, iters: int = 5, top: int = 0) -> tuple:
+    """Device time of fn() by kernel (torch.profiler, CUDA activity; only
+    the kernel and copy events are summed, not the CPU ops that launched
+    them). Returns (wall ms, device busy ms) per call and prints the `top`
+    kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    rows = sorted(((e.self_device_time_total / 1e3 / iters, e.count // iters,
+                    e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    for ms, n, key in rows[:top]:
+        print(f"  {ms:8.4f} ms/step  {n:4d} launches/step  {key[:90]}")
+    return wall, sum(r[0] for r in rows)
+
+
+def compare(torch, got, want, atol: float, rtol: float):
+    """(max |got - want|, whether every element is within atol + rtol|want|)."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    ok = bool(torch.isfinite(g).all()) and bool((d <= atol + rtol * w.abs()).all())
+    return float(d.max()), ok
+
+
+def nms_bytes_needed(iou, same, valid, thr: float) -> int:
+    """Bytes the greedy scan must read on these inputs: for each kept row i,
+    the same-class flags of the columns j > i still alive, and the IoU where
+    the classes match; plus the valid mask read and the keep mask written."""
+    iou, same, valid = (t.cpu().numpy() for t in (iou, same, valid))
+    b, k = valid.shape
+    total = 2 * b * k * 4
+    for f in range(b):
+        alive = valid[f].copy()
+        for i in range(k):
+            if not alive[i]:
+                continue
+            cols = np.zeros(k, bool)
+            cols[i + 1:] = alive[i + 1:]
+            match = cols & same[f, i]
+            total += int(cols.sum()) + 4 * int(match.sum())
+            alive[match & (iou[f, i] > np.float32(thr))] = False
+    return total
+
+
+def record_path_calls(engine, frames_d, hs, ws):
+    """Run one plain bf16 step and record the inputs it hands each kernel's
+    plain version: the serving path's own shapes and values."""
+    from zero_latency_yolo_tpu_torch.models import yolov8 as ym
+    from zero_latency_yolo_tpu_torch.ops import nms as nms_mod
+    calls = {"conv1x1_bias_act": [], "bias_silu": [], "nms_suppress": []}
+    saved = (ym.conv1x1_bias_act_plain, ym.bias_silu_plain,
+             nms_mod.greedy_nms_mask_plain)
+
+    def recorder(name, fn):
+        def rec(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return fn(*args, **kwargs)
+        return rec
+
+    ym.conv1x1_bias_act_plain = recorder("conv1x1_bias_act", saved[0])
+    ym.bias_silu_plain = recorder("bias_silu", saved[1])
+    nms_mod.greedy_nms_mask_plain = recorder("nms_suppress", saved[2])
+    try:
+        engine._build_step(plain=True)(
+            engine._params, frames_d, hs, ws, engine._class_weights,
+            engine.config.confidence_threshold, engine.config.nms_threshold)
+    finally:
+        (ym.conv1x1_bias_act_plain, ym.bias_silu_plain,
+         nms_mod.greedy_nms_mask_plain) = saved
+    return calls
+
+
+def check_kernels(torch, calls, thr: float, dev):
+    """Phase 3: every recorded call through the kernel and its plain version
+    in bf16 and f32; bf16 times. Returns per-kernel report fields."""
+    import torch.nn.functional as F
+    from zero_latency_yolo_tpu_torch.ops import act_cuda, conv1x1_cuda, nms_cuda
+    report = {}
+
+    # 1x1 conv GEMM + bias (+SiLU)
+    errs = {"bfloat16": 0.0, "float32": 0.0}
+    ms = plain_ms = lib_ms = bound_ms = bytes_s = ops_s = 0.0
+    for (x, w, b), kw in calls["conv1x1_bias_act"]:
+        act = kw.get("act", True)
+        for dt, cast in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            xx, ww = x.to(cast).contiguous(), w.to(cast).contiguous()
+            err, ok = compare(torch, conv1x1_cuda.conv1x1_bias_act(xx, ww, b, act),
+                              conv1x1_cuda.conv1x1_bias_act_plain(xx, ww, b, act),
+                              *TOLERANCE[("conv1x1_bias_act", dt)])
+            require(ok, f"conv1x1 {dt} {tuple(x.shape)}x{tuple(w.shape)} "
+                        f"act={act}: max err {err:.3g} outside tolerance")
+            errs[dt] = max(errs[dt], err)
+        m, cin = x.shape
+        cout = w.shape[1]
+        bl = b.to(x.dtype)
+        ms += time_ms(torch, lambda: conv1x1_cuda.conv1x1_bias_act(x, w, b, act))
+        plain_ms += time_ms(torch, lambda: conv1x1_cuda.conv1x1_bias_act_plain(
+            x, w, b, act))
+        lib_ms += time_ms(torch, (lambda: F.silu(torch.addmm(bl, x, w))) if act
+                          else (lambda: torch.addmm(bl, x, w)))
+        t_bytes = ((m * cin + cin * cout + m * cout) * x.element_size()
+                   + cout * 4) / HBM_BYTES_PER_S
+        t_ops = 2.0 * m * cin * cout / PEAK_OPS_PER_S["bfloat16"]
+        bound_ms += 1e3 * max(t_bytes, t_ops)
+        bytes_s, ops_s = bytes_s + t_bytes, ops_s + t_ops
+    report["conv1x1_bias_act"] = dict(
+        calls=len(calls["conv1x1_bias_act"]), max_abs_err=errs["bfloat16"],
+        max_abs_err_f32=errs["float32"], ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, bound_ms=bound_ms,
+        bound_by="bytes" if bytes_s >= ops_s else "operations")
+
+    # Bias + SiLU
+    errs = {"bfloat16": 0.0, "float32": 0.0}
+    ms = plain_ms = lib_ms = bound_ms = bytes_s = ops_s = 0.0
+    for (y, b), _ in calls["bias_silu"]:
+        for dt, cast in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            yy = y.to(cast).contiguous()
+            err, ok = compare(torch, act_cuda.bias_silu(yy, b),
+                              act_cuda.bias_silu_plain(yy, b),
+                              *TOLERANCE[("bias_silu", dt)])
+            require(ok, f"bias_silu {dt} {tuple(y.shape)}: max err {err:.3g} "
+                        "outside tolerance")
+            errs[dt] = max(errs[dt], err)
+        bl = b.to(y.dtype)
+        ms += time_ms(torch, lambda: act_cuda.bias_silu(y, b))
+        plain_ms += time_ms(torch, lambda: act_cuda.bias_silu_plain(y, b))
+        lib_ms += time_ms(torch, lambda: F.silu(y + bl))
+        n = y.numel()
+        t_bytes = (2 * n * y.element_size() + b.numel() * 4) / HBM_BYTES_PER_S
+        t_ops = 4.0 * n / PEAK_OPS_PER_S["float32"]  # add, exp, add, divide
+        bound_ms += 1e3 * max(t_bytes, t_ops)
+        bytes_s, ops_s = bytes_s + t_bytes, ops_s + t_ops
+    report["bias_silu"] = dict(
+        calls=len(calls["bias_silu"]), max_abs_err=errs["bfloat16"],
+        max_abs_err_f32=errs["float32"], ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, bound_ms=bound_ms,
+        bound_by="bytes" if bytes_s >= ops_s else "operations")
+
+    # NMS scan: the path's own inputs, then seeded boxes at B = 8, K = 256.
+    from zero_latency_yolo_tpu_torch.ops.nms import _iou_matrix_center
+    mismatches = 0
+    for (iou, same, valid, t), _ in calls["nms_suppress"]:
+        mismatches += int((nms_cuda.greedy_nms_mask(iou, same, valid, t)
+                           != nms_cuda.greedy_nms_mask_plain(iou, same, valid, t)
+                           ).sum())
+    g = torch.Generator().manual_seed(0)
+    boxes = torch.rand(8, 256, 4, generator=g) * 416
+    boxes[..., 2:] = boxes[..., 2:] * 0.4 + 20
+    classes = torch.randint(0, 4, (8, 256), generator=g)
+    iou = _iou_matrix_center(boxes).to(dev)
+    same = (classes[:, :, None] == classes[:, None, :]).to(dev)
+    valid = (torch.rand(8, 256, generator=g) > 0.3).to(dev)
+    keep = nms_cuda.greedy_nms_mask(iou, same, valid, thr)
+    mismatches += int((keep != nms_cuda.greedy_nms_mask_plain(
+        iou, same, valid, thr)).sum())
+    require(mismatches == 0, f"nms_suppress: {mismatches} keep entries differ "
+                             "from the plain scan (must be exact)")
+    report["nms_suppress"] = dict(
+        calls=len(calls["nms_suppress"]), max_abs_err=0.0, max_abs_err_f32=0.0,
+        ms=time_ms(torch, lambda: nms_cuda.greedy_nms_mask(iou, same, valid, thr)),
+        plain_ms=time_ms(torch, lambda: nms_cuda.greedy_nms_mask_plain(
+            iou, same, valid, thr), iters=10),
+        library_ms=None,
+        bound_ms=1e3 * nms_bytes_needed(iou, same, valid, thr) / HBM_BYTES_PER_S,
+        bound_by="bytes", kept=int(keep.sum()), valid=int(valid.sum()))
+    for name, r in report.items():
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        tol = ("exact" if name == "nms_suppress" else
+               f"(atol, rtol) bf16 {TOLERANCE[(name, 'bfloat16')]} "
+               f"f32 {TOLERANCE[(name, 'float32')]}")
+        print(f"kernel {name}: calls/step={r['calls']} max_abs_err "
+              f"bf16={r['max_abs_err']:.3g} f32={r['max_abs_err_f32']:.3g} "
+              f"(tolerance {tol}) kernel_ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} library_ms={lib} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    return report
+
+
+def _iou_to(d, boxes: np.ndarray) -> np.ndarray:
+    """IoU of one center-format detection with (N, 4) cxcywh boxes."""
+    ix = np.maximum(np.minimum(d[0] + d[2] / 2, boxes[:, 0] + boxes[:, 2] / 2)
+                    - np.maximum(d[0] - d[2] / 2, boxes[:, 0] - boxes[:, 2] / 2), 0)
+    iy = np.maximum(np.minimum(d[1] + d[3] / 2, boxes[:, 1] + boxes[:, 3] / 2)
+                    - np.maximum(d[1] - d[3] / 2, boxes[:, 1] - boxes[:, 3] / 2), 0)
+    inter = ix * iy
+    return inter / (d[2] * d[3] + boxes[:, 2] * boxes[:, 3] - inter + 1e-9)
+
+
+def _rows(dets) -> np.ndarray:
+    """Detections as (N, 6) rows: cx, cy, w, h, confidence, class."""
+    return np.array([[d.x, d.y, d.width, d.height, d.confidence, d.class_id]
+                     for d in dets], np.float64).reshape(-1, 6)
+
+
+def twin_match(ref: np.ndarray, other: np.ndarray):
+    """Pair each row of `ref` with its own twin in `other`: the unused row of
+    highest IoU, a twin when IoU > 0.85, the class is the same and the
+    confidence is within 0.03 (the twin test of
+    tests/test_model_parity.py:137-191). Returns (unmatched ref rows,
+    unmatched other rows, worst IoU, worst confidence delta) over the
+    pairs made."""
+    used, lost, worst_iou, worst_conf = set(), [], 1.0, 0.0
+    for i, d in enumerate(ref):
+        iou = _iou_to(d, other[:, :4]) if len(other) else np.zeros(0)
+        iou[list(used)] = -1.0
+        j = int(np.argmax(iou)) if len(iou) else -1
+        if (j < 0 or iou[j] <= 0.85 or other[j, 5] != d[5]
+                or abs(other[j, 4] - d[4]) >= 0.03):
+            lost.append(i)
+            continue
+        used.add(j)
+        worst_iou = min(worst_iou, float(iou[j]))
+        worst_conf = max(worst_conf, float(abs(other[j, 4] - d[4])))
+    extra = [j for j in range(len(other)) if j not in used]
+    return lost, extra, worst_iou, worst_conf
+
+
+def boundary_candidates(torch, eng32, frames: np.ndarray, conf: float,
+                        nms: float) -> list:
+    """The f32 decisions that sit on one of the postprocess's thresholds,
+    per frame (square frames at the model size, so candidate boxes need no
+    un-letterboxing). Returns, per frame, (candidates as _rows plus two
+    columns: weighted score, greatest IoU with a kept higher-ranked box of
+    the class; edge; tie):
+
+    edge[c]: candidate c's weighted score is within the gate's 0.03 of the
+      confidence threshold, or its greatest IoU with a kept higher-ranked
+      box of its class is within 0.01 of the NMS threshold: whether it is
+      kept goes either way with rounding.
+    tie[c, d]: c and d are of one class, overlap beyond the NMS threshold
+      and score within 0.01 of each other: which of the two is kept (their
+      rank) goes either way with rounding.
+
+    bf16 moves a box edge by about 1e-3 of the frame, a pair's IoU by a few
+    1e-3 and a score by up to 1e-2, in any implementation."""
+    from zero_latency_yolo_tpu_torch.models.yolov8 import forward_decoded
+    from zero_latency_yolo_tpu_torch.ops import nms as nms_mod
+    from zero_latency_yolo_tpu_torch.ops.nms_cuda import greedy_nms_mask_plain
+    from zero_latency_yolo_tpu_torch.ops.preprocess import letterbox_batch_mxu
+    size = frames.shape[1]
+    dev = eng32.device
+    with torch.inference_mode():
+        hw = torch.full((len(frames),), size, dtype=torch.int32, device=dev)
+        x = letterbox_batch_mxu(torch.from_numpy(frames).to(dev), hw, hw, size)
+        pred = forward_decoded(eng32._params, eng32.spec, x)
+        boxes, scores, classes, valid = nms_mod._select_one(
+            pred, eng32._class_weights, conf - 0.03, eng32.pre_nms_topk)
+        iou = nms_mod._iou_matrix_center(boxes)
+        same = classes[:, :, None] == classes[:, None, :]
+        keep = greedy_nms_mask_plain(iou, same, valid & (scores >= conf), nms)
+        k = keep.shape[1]
+        above = torch.ones(k, k, dtype=torch.bool, device=dev).triu(1)
+        sup = torch.where(keep[:, :, None] & same & above[None], iou,
+                          torch.zeros((), device=dev)).amax(dim=1)
+        edge = ((scores - conf).abs() < 0.03) | ((sup - nms).abs() < 0.01)
+        tie = (same & (iou > nms) & ~torch.eye(k, dtype=torch.bool, device=dev)
+               & ((scores[:, :, None] - scores[:, None, :]).abs() < 0.01))
+    out = []
+    for f in range(len(frames)):
+        v = valid[f].cpu().numpy()
+        sc = scores[f].cpu().numpy()[v]
+        rows = np.concatenate([
+            boxes[f].cpu().numpy()[v] / size, np.minimum(sc, 1.0)[:, None],
+            classes[f].cpu().numpy()[v][:, None], sc[:, None],
+            sup[f].cpu().numpy()[v][:, None]], axis=1)
+        out.append((rows, edge[f].cpu().numpy()[v],
+                    tie[f].cpu().numpy()[v][:, v]))
+    return out
+
+
+def _twin_ids(d: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Indices of the rows that pass the twin test against detection d."""
+    if not len(rows):
+        return np.zeros(0, int)
+    ok = ((_iou_to(d, rows[:, :4]) > 0.85) & (rows[:, 5] == d[5])
+          & (np.abs(rows[:, 4] - d[4]) < 0.03))
+    return np.flatnonzero(ok)
+
+
+def bf16_gate(torch, eng16, eng32, reqs, frames, conf: float, nms: float):
+    """bf16 against f32 at detection level, per frame.
+
+    literal: the gate of tests/test_model_parity.py:137-191 (same count,
+    a twin for every detection).
+    margin: every detection of either run has a twin in the other, except
+    a detection that twins an f32 candidate on the edge of a threshold, and
+    a pair (one detection of each run) that twins two f32 candidates tied
+    in rank (boundary_candidates); those are counted as excused and
+    described in `notes`.
+    """
+    rb = eng16.infer_batch(reqs)
+    rf = eng32.infer_batch(reqs)
+    bounds = boundary_candidates(torch, eng32, frames, conf, nms)
+    literal, margin, excused, notes = [], [], [], []
+    worst_iou, worst_conf = 1.0, 0.0
+    for n, (f, b, (cand, edge, tie)) in enumerate(zip(rf, rb, bounds)):
+        fr, br = _rows(f.detections), _rows(b.detections)
+        lost, extra, wi, wc = twin_match(fr, br)
+        worst_iou, worst_conf = min(worst_iou, wi), max(worst_conf, wc)
+        literal.append(not lost and not extra)
+        odd_f, odd_b = [], []
+        for run, odd, dets in (("f32", odd_f, [fr[i] for i in lost]),
+                               ("bf16", odd_b, [br[j] for j in extra])):
+            for d in dets:
+                ids = _twin_ids(d, cand[:, :6])
+                on_edge = ids[edge[ids]]
+                if len(on_edge):
+                    c = cand[on_edge[0]]
+                    notes.append(f"frame {n}: {run}-only class {int(d[5])} "
+                                 f"conf {d[4]:.4f}, f32 candidate score "
+                                 f"{c[6]:.4f}, IoU with a kept box {c[7]:.4f}")
+                else:
+                    odd.append(d)
+        for d in list(odd_f):
+            ids = _twin_ids(d, cand[:, :6])
+            for e in odd_b:
+                pair = np.argwhere(tie[np.ix_(ids, _twin_ids(e, cand[:, :6]))])
+                if len(pair):
+                    c1 = cand[ids[pair[0][0]]]
+                    c2 = cand[_twin_ids(e, cand[:, :6])[pair[0][1]]]
+                    notes.append(f"frame {n}: class {int(d[5])} twin anchors "
+                                 f"swapped, f32 scores {c1[6]:.4f} and "
+                                 f"{c2[6]:.4f}")
+                    odd_f = [x for x in odd_f if x is not d]
+                    odd_b = [x for x in odd_b if x is not e]
+                    break
+        excused.append(len(lost) + len(extra) - len(odd_f) - len(odd_b))
+        margin.append(not odd_f and not odd_b)
+    return dict(literal=literal, margin=margin, excused=excused, notes=notes,
+                counts_bf16=[len(r.detections) for r in rb],
+                counts_f32=[len(r.detections) for r in rf],
+                worst_iou=worst_iou, worst_conf=worst_conf)
+
+
+def main() -> None:
+    with Phase("device"):
+        import torch
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: no CUDA device")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60)
+        print(smi.stdout.strip().splitlines()[0], flush=True)
+        print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+              f"python {sys.version.split()[0]} "
+              f"device {torch.cuda.get_device_name(0)}", flush=True)
+        # f32 references in full f32: cuDNN's f32 conv is TF32 by default.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        sys.path.insert(0, str(ROOT))
+        from zero_latency_yolo_tpu_torch.config import ServerConfig
+        from zero_latency_yolo_tpu_torch.ops import (_build, act_cuda,
+                                                     conv1x1_cuda, nms_cuda)
+        from zero_latency_yolo_tpu_torch.ops.nms import unpack_outputs
+        from zero_latency_yolo_tpu_torch.runtime.engine import (
+            InferenceEngine, InferenceRequest)
+        dev = torch.device(DEVICE)
+
+    with Phase("build"):
+        k = _build.kernels()
+        print(f"built {k.path.name} in {k.build_seconds:.2f} s (nvcc only)",
+              flush=True)
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print("  ptxas: " + line.split("ptxas info    :")[-1].strip())
+
+    cfg = ServerConfig.load(str(CONFIG), create_if_missing=False)
+    cfg.model_path = str(ROOT / cfg.model_path)
+    bucket = (608, 800)
+
+    def staged(frames):
+        b = len(frames)
+        buf = np.zeros((b,) + bucket + (3,), np.uint8)
+        for i, f in enumerate(frames):
+            buf[i, :f.shape[0], :f.shape[1]] = f
+        hs = torch.tensor([f.shape[0] for f in frames], dtype=torch.int32,
+                          device=dev)
+        ws = torch.tensor([f.shape[1] for f in frames], dtype=torch.int32,
+                          device=dev)
+        return torch.from_numpy(buf).to(dev), hs, ws
+
+    with Phase("kernels"):
+        engine = InferenceEngine(cfg, device=DEVICE)
+        require(not engine.simulation, f"engine in simulation mode: "
+                                       f"{cfg.model_path} did not load")
+        with torch.inference_mode():
+            frames_d, hs, ws = staged([synthetic_frame(800, 600, seed=s)
+                                       for s in range(4, 12)])
+            calls = record_path_calls(engine, frames_d, hs, ws)
+            require(len(calls["conv1x1_bias_act"]) == 24
+                    and len(calls["bias_silu"]) == 39
+                    and len(calls["nms_suppress"]) == 1,
+                    f"unexpected path: {[(n, len(c)) for n, c in calls.items()]}")
+            report = check_kernels(torch, calls, cfg.nms_threshold, dev)
+            torch.cuda.synchronize()
+        del calls
+
+    with Phase("main path"):
+        engine.warmup()
+        reqs = [InferenceRequest(client_id=i + 1, frame_id=i, timestamp=i,
+                                 width=w, height=h,
+                                 data=synthetic_frame(w, h, seed=4 + i, t=0.3 * i))
+                for i, (w, h) in enumerate([(800, 600)] * 11 + [(1920, 1080)] * 2)]
+        nms_cuda.launches = conv1x1_cuda.launches = act_cuda.launches = 0
+        results = engine.infer_batch(reqs)
+        pend = [engine.dispatch(reqs[:4]), engine.dispatch(reqs[4:8])]
+        results += [r for rs in engine.complete_many(pend) for r in rs]
+        torch.cuda.synchronize()
+        launches = {"nms_suppress": nms_cuda.launches,
+                    "conv1x1_bias_act": conv1x1_cuda.launches,
+                    "bias_silu": act_cuda.launches}
+        print(f"main path: {len(results)} results from 5 steps, launches "
+              f"{launches}", flush=True)
+        require(len(results) == len(reqs) + 8, "missing results")
+        require(all(n > 0 for n in launches.values()),
+                f"a kernel was not launched on the main path: {launches}")
+        ndet = sum(len(r.detections) for r in results)
+        require(ndet > 0, "no detections on the main path")
+        require(all(0.0 <= v <= 1.0 for r in results for d in r.detections
+                    for v in (d.x, d.y, d.width, d.height, d.confidence)),
+                "a detection outside [0, 1]")
+        print(f"main path: {ndet} detections, classes "
+              f"{sorted({d.class_id for r in results for d in r.detections})}",
+              flush=True)
+
+        # f32: the step with kernels against the step with plain versions.
+        cfg32 = copy.deepcopy(cfg)
+        cfg32.tpu.dtype = "float32"
+        eng32 = InferenceEngine(cfg32, device=DEVICE)
+        frames_d, hs, ws = staged([synthetic_frame(800, 600, seed=s, t=0.3 * s)
+                                   for s in range(4, 12)])
+        args = (eng32._params, frames_d, hs, ws, eng32._class_weights,
+                cfg.confidence_threshold, cfg.nms_threshold)
+        got = eng32.get_step(8, bucket)(*args).cpu().numpy()
+        want = eng32._build_step(plain=True)(*args).cpu().numpy()
+        require(got.shape == (8, 1 + 6 * 32) and np.isfinite(got).all(),
+                f"packed output {got.shape} not finite (8, 193)")
+        g, w = unpack_outputs(got), unpack_outputs(want)
+        require(np.array_equal(g["count"], w["count"]),
+                f"f32 counts differ: {g['count']} vs plain {w['count']}")
+        valid = np.arange(32)[None, :] < w["count"][:, None]
+        require(np.array_equal(g["classes"][valid], w["classes"][valid]),
+                "f32 classes differ from the plain step")
+        box_err = float(np.abs(g["boxes"] - w["boxes"])[valid].max(initial=0))
+        score_err = float(np.abs(g["scores"] - w["scores"])[valid].max(initial=0))
+        print(f"f32 kernels vs plain: counts {w['count'].tolist()} equal, "
+              f"classes equal, max box err {box_err:.3g}, max score err "
+              f"{score_err:.3g} (tolerance 1e-3)", flush=True)
+        require(box_err < 1e-3 and score_err < 1e-3,
+                "f32 boxes or scores outside 1e-3 of the plain step")
+
+        # bf16 against f32, detection level, on frames of the task the
+        # weights were trained on (as tests/test_model_parity.py:137-191).
+        task = task_frames(8, 416, seed=777)
+        treqs = [InferenceRequest(client_id=i + 1, frame_id=i, timestamp=i,
+                                  width=416, height=416, data=task[i])
+                 for i in range(8)]
+        conf, nms = cfg.confidence_threshold, cfg.nms_threshold
+        g = bf16_gate(torch, engine, eng32, treqs, task, conf, nms)
+        print(f"bf16 vs f32 (task frames): counts {g['counts_bf16']} vs "
+              f"{g['counts_f32']}; literal gate per frame {g['literal']}; "
+              f"margin gate per frame {g['margin']} (detections decided on "
+              f"a threshold, excused: {g['excused']}); worst twin IoU "
+              f"{g['worst_iou']:.4f}, worst conf delta {g['worst_conf']:.4f}",
+              flush=True)
+        for note in g["notes"]:
+            print(f"  on a threshold: {note}", flush=True)
+        require(sum(g["counts_f32"]) > 0, "bf16 gate vacuous: no detections")
+        require(all(g["margin"]), "bf16 detection gate failed")
+        # The game frames, reported and not gated: the weights were not
+        # trained on them.
+        rb, rf = engine.infer_batch(reqs), eng32.infer_batch(reqs)
+        lit = [twin_match(_rows(f.detections), _rows(b.detections))[:2]
+               for f, b in zip(rf, rb)]
+        print(f"bf16 vs f32 (game frames, not gated): literal gate "
+              f"{sum(not a and not b for a, b in lit)}/{len(lit)} frames; "
+              f"counts {[len(r.detections) for r in rb]} vs "
+              f"{[len(r.detections) for r in rf]}", flush=True)
+
+        for b in engine.batch_buckets:
+            frames_d, hs, ws = staged([synthetic_frame(800, 600, seed=s)
+                                       for s in range(b)])
+            step = engine.get_step(b, bucket)
+
+            def run():
+                return step(engine._params, frames_d, hs, ws,
+                            engine._class_weights, cfg.confidence_threshold,
+                            cfg.nms_threshold)
+            wall = wall_ms(torch, run)
+            pwall, busy = profile_step(torch, run, top=14 if b == 8 else 0)
+            print(f"step bf16 batch {b} bucket {bucket[0]}x{bucket[1]}: wall "
+                  f"{wall:.3f} ms/batch ({wall / b:.3f} ms/frame); device "
+                  f"busy {busy:.3f} ms/batch (profiler; wall under it "
+                  f"{pwall:.3f} ms), idle share {max(0.0, 1 - busy / wall):.3f}",
+                  flush=True)
+
+    print("kernels: " + ", ".join(f"{n} launches={launches[n]}"
+                                  for n in KERNELS), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": name, "route": route, "source": source, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": report[name]["max_abs_err"],
+         "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"],
+         "bound_ms": report[name]["bound_ms"],
+         "bound_by": report[name]["bound_by"],
+         "library_ms": report[name]["library_ms"]}
+        for name, (route, source, replaces) in KERNELS.items()]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

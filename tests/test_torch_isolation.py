@@ -1,0 +1,103 @@
+"""The PyTorch port imports neither JAX nor the JAX package: the card's
+machine has no `jax`, so one such import anywhere on its side breaks it.
+Also the build plumbing of ops/_build.py, with a stand-in compiler."""
+
+import ast
+import os
+import stat
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "zero_latency_yolo_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "optax", "zero_latency_yolo_tpu")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    roots = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots += [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.append(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_import(path):
+    bad = [r for r in _imported_roots(path) if r in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_package_imports_with_jax_blocked():
+    """Every module of the port imports in a process where `import jax` and
+    `import zero_latency_yolo_tpu` fail."""
+    pytest.importorskip("torch")
+    mods = sorted(
+        "zero_latency_yolo_tpu_torch." + ".".join(
+            p.relative_to(PORT).with_suffix("").parts).replace(".__init__", "")
+        for p in PORT.rglob("*.py"))
+    code = ("import sys\n"
+            + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
+            + "import importlib\n"
+            + "".join(f"importlib.import_module({m!r})\n"
+                      for m in ["zero_latency_yolo_tpu_torch"] + mods)
+            + "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_build_runs_nvcc_once_per_source_hash(tmp_path, monkeypatch):
+    """build() calls the nvcc it finds with the repo's sources, installs the
+    output atomically under a name hashed from sources and flags, and
+    reuses it; a failing compiler raises with its output."""
+    from zero_latency_yolo_tpu_torch.ops import _build
+    bindir = tmp_path / "cuda" / "bin"
+    bindir.mkdir(parents=True)
+    log = tmp_path / "calls"
+    nvcc = bindir / "nvcc"
+    nvcc.write_text("#!/bin/sh\n"
+                    f"echo \"$@\" >> {log}\n"
+                    "while [ $# -gt 0 ]; do\n"
+                    "  if [ \"$1\" = -o ]; then echo lib > \"$2\"; fi; shift\n"
+                    "done\n")
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "_BUILD_DIR", tmp_path / "build")
+    assert _build.find_nvcc() == str(nvcc)
+
+    path, _, _ = _build.build()
+    assert path.parent == tmp_path / "build"
+    assert path.name.startswith("libzlt_kernels_") and path.read_text() == "lib\n"
+    args = log.read_text().split()
+    assert "arch=compute_90a,code=sm_90a" in args
+    assert str(PORT / "csrc" / "kernels.cu") in args
+    assert _build.build() == (path, "", 0.0)       # cached: no second call
+    assert len(log.read_text().splitlines()) == 1
+
+    path.unlink()
+    nvcc.write_text("#!/bin/sh\necho 'kernels.cu(1): error' >&2\nexit 2\n")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.build()
+    assert not list((tmp_path / "build").iterdir())  # no partial library
+
+
+def test_find_nvcc_raises_when_absent(tmp_path, monkeypatch):
+    from zero_latency_yolo_tpu_torch.ops import _build
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "Path", lambda p: tmp_path / "missing"
+                        if str(p) == "/usr/local/cuda/bin/nvcc" else Path(p))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()

@@ -1,0 +1,258 @@
+// Hand-written Hopper (sm_90a) kernels of the PyTorch port's serving step.
+//
+// One translation unit with a plain C interface, compiled by nvcc into one
+// shared library and bound with ctypes (ops/_build.py). No PyTorch header is
+// included. Every entry point launches on the stream it is given, does not
+// synchronise, allocates nothing, and returns cudaGetLastError().
+//
+//   zlt_nms_suppress      greedy same-class NMS suppression scan
+//                         (replaces ops/nms_pallas.py _suppress_kernel)
+//   zlt_conv1x1_bias_act  1x1 conv as a GEMM with a bias(+SiLU) epilogue
+//                         (replaces ops/conv1x1_pallas.py _mm_bias_silu_kernel
+//                         and _mm_bias_kernel)
+//   zlt_bias_silu         elementwise silu(y + b) over a flat NHWC buffer
+//                         (replaces ops/act_pallas.py _bias_silu_kernel)
+//
+// dtype codes: 0 = float32, 1 = bfloat16. Arithmetic is f32 in registers;
+// results are rounded once to the storage type.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch's .to()
+}
+
+__device__ __forceinline__ float silu(float z) { return z / (1.0f + expf(-z)); }
+
+// ---------------------------------------------------------------------------
+// 1. NMS suppression scan. One block per frame, one thread per candidate
+// column j, keep mask in shared memory. Row i is read only while i is alive,
+// and column j only while j is alive; the iou element only where the classes
+// match. The K-step loop with one barrier per step is the serial dependence
+// of greedy NMS itself.
+// ---------------------------------------------------------------------------
+__global__ void nms_suppress_kernel(const float* __restrict__ iou,
+                                    const int8_t* __restrict__ same,
+                                    const int32_t* __restrict__ valid,
+                                    int32_t* __restrict__ keep, int k,
+                                    float thr) {
+  extern __shared__ int32_t alive[];
+  const int j = threadIdx.x;
+  const size_t frame = blockIdx.x;
+  const size_t base = frame * k * k;
+  alive[j] = valid[frame * k + j] != 0;
+  for (int i = 0; i < k; ++i) {
+    __syncthreads();  // step i-1's clears are visible before alive[i] is read
+    if (j > i && alive[i] && alive[j]) {
+      const size_t off = base + static_cast<size_t>(i) * k + j;
+      if (same[off] != 0 && iou[off] > thr) alive[j] = 0;
+    }
+  }
+  keep[frame * k + j] = alive[j];  // alive[j] is written by thread j only
+}
+
+// ---------------------------------------------------------------------------
+// 2. 1x1 conv GEMM: out[m, n] = act(sum_k x[m, k] w[k, n] + b[n]).
+// 64x64 output tile per 256-thread block, 16-deep k-steps staged in shared
+// memory as f32, a 4x4 register tile per thread, f32 accumulation, the bias
+// and SiLU applied to the accumulator before the one store. Ragged M, N and
+// K edges are masked.
+// ---------------------------------------------------------------------------
+constexpr int kBM = 64;
+constexpr int kBN = 64;
+constexpr int kBK = 16;
+constexpr int kGemmThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kGemmThreads)
+mm_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const float* __restrict__ bias, T* __restrict__ out, int m,
+                   int kdim, int n, int act) {
+  __shared__ float as[kBK][kBM + 4];
+  __shared__ float bs[kBK][kBN];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < kdim; k0 += kBK) {
+#pragma unroll
+    for (int l = 0; l < (kBM * kBK) / kGemmThreads; ++l) {
+      const int idx = tid + kGemmThreads * l;
+      const int r = idx / kBK, c = idx % kBK;
+      const int gm = m0 + r, gk = k0 + c;
+      as[c][r] = (gm < m && gk < kdim)
+                     ? to_f32(x[static_cast<size_t>(gm) * kdim + gk])
+                     : 0.0f;
+    }
+#pragma unroll
+    for (int l = 0; l < (kBK * kBN) / kGemmThreads; ++l) {
+      const int idx = tid + kGemmThreads * l;
+      const int r = idx / kBN, c = idx % kBN;
+      const int gk = k0 + r, gn = n0 + c;
+      bs[r][c] = (gk < kdim && gn < n)
+                     ? to_f32(w[static_cast<size_t>(gk) * n + gn])
+                     : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = as[kk][ty + 16 * i];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) b[jj] = bs[kk][tx + 16 * jj];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(a[i], b[jj], acc[i][jj]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + ty + 16 * i;
+    if (gm >= m) continue;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int gn = n0 + tx + 16 * jj;
+      if (gn >= n) continue;
+      float z = acc[i][jj] + bias[gn];
+      if (act) z = silu(z);
+      out[static_cast<size_t>(gm) * n + gn] = from_f32<T>(z);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3. Bias + SiLU over a flat NHWC buffer of n elements with c channels
+// (bias index = i % c). Memory bound: one read and one write per element,
+// 16-byte vector loads and stores when c is a multiple of the vector width
+// and the buffers are 16-byte aligned, a scalar grid-stride loop otherwise.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void bias_silu_vec_kernel(const T* __restrict__ y,
+                                     const float* __restrict__ bias,
+                                     T* __restrict__ out, long long nvec, int c) {
+  constexpr int kV = 16 / sizeof(T);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long v = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       v < nvec; v += stride) {
+    const uint4 raw = reinterpret_cast<const uint4*>(y)[v];
+    const T* e = reinterpret_cast<const T*>(&raw);
+    const int c0 = static_cast<int>((v * kV) % c);
+    uint4 res;
+    T* r = reinterpret_cast<T*>(&res);
+#pragma unroll
+    for (int t = 0; t < kV; ++t) r[t] = from_f32<T>(silu(to_f32(e[t]) + bias[c0 + t]));
+    reinterpret_cast<uint4*>(out)[v] = res;
+  }
+}
+
+template <typename T>
+__global__ void bias_silu_kernel(const T* __restrict__ y,
+                                 const float* __restrict__ bias,
+                                 T* __restrict__ out, long long n, int c) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       i < n; i += stride) {
+    out[i] = from_f32<T>(silu(to_f32(y[i]) + bias[i % c]));
+  }
+}
+
+template <typename T>
+void launch_bias_silu(const void* y, const void* bias, void* out, long long n,
+                      int c, cudaStream_t stream) {
+  constexpr int kV = 16 / sizeof(T);
+  constexpr int kThreads = 256;
+  constexpr long long kMaxBlocks = 132 * 16;  // grid-stride beyond 16 per SM
+  const bool vec = c % kV == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const long long work = vec ? n / kV : n;
+  long long blocks = (work + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (vec) {
+    bias_silu_vec_kernel<T><<<static_cast<int>(blocks), kThreads, 0, stream>>>(
+        static_cast<const T*>(y), static_cast<const float*>(bias),
+        static_cast<T*>(out), work, c);
+  } else {
+    bias_silu_kernel<T><<<static_cast<int>(blocks), kThreads, 0, stream>>>(
+        static_cast<const T*>(y), static_cast<const float*>(bias),
+        static_cast<T*>(out), n, c);
+  }
+}
+
+template <typename T>
+void launch_mm(const void* x, const void* w, const void* bias, void* out,
+               int m, int kdim, int n, int act, cudaStream_t stream) {
+  const dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
+  mm_bias_act_kernel<T><<<grid, kGemmThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const float*>(bias), static_cast<T*>(out), m, kdim, n, act);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* zlt_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int zlt_nms_suppress(const void* iou, const void* same, const void* valid,
+                     void* keep, int b, int k, float thr, void* stream) {
+  if (b < 0 || k < 1 || k > 1024) return cudaErrorInvalidValue;
+  if (b > 0) {
+    nms_suppress_kernel<<<b, k, k * sizeof(int32_t),
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(iou), static_cast<const int8_t*>(same),
+        static_cast<const int32_t*>(valid), static_cast<int32_t*>(keep), k, thr);
+  }
+  return cudaGetLastError();
+}
+
+int zlt_conv1x1_bias_act(const void* x, const void* w, const void* bias,
+                         void* out, int m, int kdim, int n, int act, int dtype,
+                         void* stream) {
+  if (m < 0 || kdim < 1 || n < 1) return cudaErrorInvalidValue;
+  if (m == 0) return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch_mm<float>(x, w, bias, out, m, kdim, n, act, s);
+  } else if (dtype == 1) {
+    launch_mm<__nv_bfloat16>(x, w, bias, out, m, kdim, n, act, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+int zlt_bias_silu(const void* y, const void* bias, void* out, long long n,
+                  int c, int dtype, void* stream) {
+  if (n < 0 || c < 1 || n % c != 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch_bias_silu<float>(y, bias, out, n, c, s);
+  } else if (dtype == 1) {
+    launch_bias_silu<__nv_bfloat16>(y, bias, out, n, c, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+}  // extern "C"

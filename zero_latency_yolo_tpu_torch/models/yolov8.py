@@ -1,0 +1,401 @@
+"""YOLOv8 detection family (n/s/m/l/x) as PyTorch functions over NHWC tensors.
+
+The PyTorch counterpart of the JAX package's `models/yolov8.py`, with the same
+functions, names and parameter layout:
+
+- Activations are NHWC tensors (channels-last memory), so a 1x1 conv reads
+  its input as a flat (B*H*W, C) matrix without a copy and the bias+SiLU
+  kernel walks one flat buffer. Public functions take and return NHWC, as
+  the JAX package does.
+- Parameters are the `m0`..`m22` tree of the JAX package. `init_params` and
+  `fold_batchnorm` work on that tree in NumPy (HWIO kernels), exactly as the
+  JAX package does; `models/weights.py` `params_from_jax` turns it into the
+  device form the forward functions take: OIHW kernels for `F.conv2d`, and a
+  (Cin, Cout) matrix for each 1x1 conv.
+- Conv dispatch (`_conv`): a folded k=1 s=1 conv runs as the 1x1 matmul
+  kernel with its bias and SiLU fused (`ops/conv1x1_cuda.py`); every other
+  conv runs `F.conv2d` without bias, then the bias+SiLU kernel
+  (`ops/act_cuda.py`). `plain=True` routes both through their plain PyTorch
+  versions instead (the reference the kernels are checked against).
+- In bf16 the kernels add the bias and apply SiLU in f32 registers and round
+  once; the JAX package's bf16 serving path does the tail in bf16.
+
+Architecture (ultralytics yolov8.yaml): stem + C2f stages + SPPF backbone,
+PAN-FPN neck, decoupled anchor-free detect head with DFL (reg_max=16),
+strides (8, 16, 32).
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from dataclasses import dataclass
+from typing import Any, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.act_cuda import bias_silu, bias_silu_plain
+from ..ops.conv1x1_cuda import conv1x1_bias_act, conv1x1_bias_act_plain
+
+Params = Dict[str, Any]
+
+# variant -> (depth_multiple, width_multiple, max_channels)
+VARIANTS = {
+    # pico: a reduced test/edge variant of this framework (not an
+    # ultralytics size) — fast CPU runs for CI and tiny deployments.
+    "yolov8p": (0.33, 0.125, 256),
+    "yolov8n": (0.33, 0.25, 1024),
+    "yolov8s": (0.33, 0.50, 1024),
+    "yolov8m": (0.67, 0.75, 768),
+    "yolov8l": (1.00, 1.00, 512),
+    "yolov8x": (1.00, 1.25, 512),
+}
+
+_BASE_CH = (64, 128, 256, 512, 1024)
+BN_EPS = 1e-3  # ultralytics BatchNorm2d eps
+
+
+def _make_divisible(x: float, divisor: int = 8) -> int:
+    return int(math.ceil(x / divisor) * divisor)
+
+
+def _depth(n: int, d: float) -> int:
+    return max(round(n * d), 1)
+
+
+@dataclass(frozen=True)
+class ModelSpec:
+    variant: str
+    num_classes: int
+    depth: float
+    width: float
+    max_channels: int
+    reg_max: int = 16
+    strides: Tuple[int, ...] = (8, 16, 32)
+
+    def ch(self, base: int) -> int:
+        return _make_divisible(min(base, self.max_channels) * self.width)
+
+    @property
+    def backbone_channels(self) -> Tuple[int, int, int]:
+        """(P3, P4, P5) channels feeding the detect head."""
+        return (self.ch(256), self.ch(512), self.ch(1024))
+
+    @property
+    def no(self) -> int:
+        """Per-anchor output width: 4*reg_max box bins + nc class logits."""
+        return 4 * self.reg_max + self.num_classes
+
+    def num_anchors(self, h: int, w: int) -> int:
+        return sum((h // s) * (w // s) for s in self.strides)
+
+
+# Parametric scaling: "yolov8-d{depth}-w{width}[-mc{max_channels}]".
+_CUSTOM_VARIANT_RE = re.compile(
+    r"^yolov8-d(\d*\.?\d+)-w(\d*\.?\d+)(?:-mc(\d+))?$")
+
+
+def get_spec(variant: str = "yolov8n", num_classes: int = 4) -> ModelSpec:
+    if variant in VARIANTS:
+        d, w, mc = VARIANTS[variant]
+    else:
+        m = _CUSTOM_VARIANT_RE.match(variant)
+        if m is None:
+            raise ValueError(
+                f"unknown variant {variant!r}; choose from {sorted(VARIANTS)} "
+                "or a parametric 'yolov8-d<depth>-w<width>[-mc<max_channels>]'")
+        d, w = float(m.group(1)), float(m.group(2))
+        mc = int(m.group(3)) if m.group(3) else 1024
+        if not (0.0 < d <= 2.0 and 0.0 < w <= 2.0):
+            raise ValueError(
+                f"parametric variant {variant!r}: depth/width multiples must "
+                "be in (0, 2]")
+        if mc < 8:
+            raise ValueError(
+                f"parametric variant {variant!r}: max_channels must be >= 8")
+    return ModelSpec(variant=variant, num_classes=num_classes,
+                     depth=d, width=w, max_channels=mc)
+
+
+# ---------------------------------------------------------------------------
+# Parameter initialization (NumPy, HWIO: the JAX package's tree, number for
+# number from the same int seed)
+# ---------------------------------------------------------------------------
+
+def _init_conv(rng, cin: int, cout: int, k: int, folded: bool,
+               bias: bool = False) -> Params:
+    std = math.sqrt(2.0 / (cin * k * k))
+    w = (rng.standard_normal((k, k, cin, cout)) * std).astype(np.float32)
+    p: Params = {"w": w}
+    if folded or bias:
+        p["b"] = np.zeros((cout,), np.float32)
+    if not folded and not bias:
+        p["bn"] = {
+            "gamma": np.ones((cout,), np.float32),
+            "beta": np.zeros((cout,), np.float32),
+            "mean": np.zeros((cout,), np.float32),
+            "var": np.abs(rng.standard_normal(cout)).astype(np.float32)
+            * 0.5 + 0.5,
+        }
+    return p
+
+
+def _init_bottleneck(rng, c: int, folded: bool) -> Params:
+    return {"cv1": _init_conv(rng, c, c, 3, folded),
+            "cv2": _init_conv(rng, c, c, 3, folded)}
+
+
+def _init_c2f(rng, cin: int, cout: int, n: int, folded: bool) -> Params:
+    c = cout // 2
+    return {
+        "cv1": _init_conv(rng, cin, 2 * c, 1, folded),
+        "cv2": _init_conv(rng, (2 + n) * c, cout, 1, folded),
+        "m": [_init_bottleneck(rng, c, folded) for _ in range(n)],
+    }
+
+
+def _init_sppf(rng, cin: int, cout: int, folded: bool) -> Params:
+    c = cin // 2
+    return {"cv1": _init_conv(rng, cin, c, 1, folded),
+            "cv2": _init_conv(rng, 4 * c, cout, 1, folded)}
+
+
+def _init_detect(rng, spec: ModelSpec, folded: bool) -> Params:
+    chs = spec.backbone_channels
+    c2 = max(16, chs[0] // 4, 4 * spec.reg_max)
+    c3 = max(chs[0], min(spec.num_classes, 100))
+    cv2, cv3 = [], []
+    for cin in chs:
+        cv2.append([
+            _init_conv(rng, cin, c2, 3, folded),
+            _init_conv(rng, c2, c2, 3, folded),
+            _init_conv(rng, c2, 4 * spec.reg_max, 1, folded=True, bias=True),
+        ])
+        cv3.append([
+            _init_conv(rng, cin, c3, 3, folded),
+            _init_conv(rng, c3, c3, 3, folded),
+            _init_conv(rng, c3, spec.num_classes, 1, folded=True, bias=True),
+        ])
+    return {"cv2": cv2, "cv3": cv3}
+
+
+def init_params(seed: int, spec: ModelSpec, folded: bool = True) -> Params:
+    """Random-initialized NumPy parameter tree (HWIO, layer keys match the
+    ultralytics indices) from an int seed."""
+    rng = np.random.default_rng(seed)
+    ch, d = spec.ch, spec.depth
+    p: Params = {}
+    p["m0"] = _init_conv(rng, 3, ch(64), 3, folded)
+    p["m1"] = _init_conv(rng, ch(64), ch(128), 3, folded)
+    p["m2"] = _init_c2f(rng, ch(128), ch(128), _depth(3, d), folded)
+    p["m3"] = _init_conv(rng, ch(128), ch(256), 3, folded)
+    p["m4"] = _init_c2f(rng, ch(256), ch(256), _depth(6, d), folded)
+    p["m5"] = _init_conv(rng, ch(256), ch(512), 3, folded)
+    p["m6"] = _init_c2f(rng, ch(512), ch(512), _depth(6, d), folded)
+    p["m7"] = _init_conv(rng, ch(512), ch(1024), 3, folded)
+    p["m8"] = _init_c2f(rng, ch(1024), ch(1024), _depth(3, d), folded)
+    p["m9"] = _init_sppf(rng, ch(1024), ch(1024), folded)
+    p["m12"] = _init_c2f(rng, ch(1024) + ch(512), ch(512), _depth(3, d), folded)
+    p["m15"] = _init_c2f(rng, ch(512) + ch(256), ch(256), _depth(3, d), folded)
+    p["m16"] = _init_conv(rng, ch(256), ch(256), 3, folded)
+    p["m18"] = _init_c2f(rng, ch(256) + ch(512), ch(512), _depth(3, d), folded)
+    p["m19"] = _init_conv(rng, ch(512), ch(512), 3, folded)
+    p["m21"] = _init_c2f(rng, ch(512) + ch(1024), ch(1024), _depth(3, d), folded)
+    p["m22"] = _init_detect(rng, spec, folded)
+    return p
+
+
+def fold_batchnorm(params: Params, eps: float = BN_EPS) -> Params:
+    """Fold {w, bn} conv blocks of a NumPy tree into {w, b} (exact algebra).
+
+    W'[...o] = W[...o] * gamma[o] / sqrt(var[o]+eps)
+    b'[o]    = beta[o] + (b0[o] - mean[o]) * gamma[o] / sqrt(var[o]+eps)
+    """
+    def fold(node):
+        if isinstance(node, dict):
+            if "bn" in node and "w" in node:
+                bn = node["bn"]
+                scale = bn["gamma"] / np.sqrt(bn["var"] + np.float32(eps))
+                b0 = node.get("b", 0.0)
+                return {"w": node["w"] * scale,
+                        "b": bn["beta"] + (b0 - bn["mean"]) * scale}
+            return {k: fold(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [fold(v) for v in node]
+        return node
+    return fold(params)
+
+
+# ---------------------------------------------------------------------------
+# Forward pass. Every conv block `p` is in device form (models/weights.py
+# params_from_jax): {"w": OIHW, "b": (Cout,) f32} or, for a 1x1 conv,
+# {"w_mm": (Cin, Cout), "b": (Cout,) f32}.
+# ---------------------------------------------------------------------------
+
+def _conv(p: Params, x: torch.Tensor, stride: int = 1, act: bool = True,
+          plain: bool = False) -> torch.Tensor:
+    """Conv + bias (+ SiLU) over NHWC `x`; SAME padding ((k-1)//2)."""
+    if "w_mm" in p:
+        if stride != 1:
+            raise ValueError("1x1 conv blocks run at stride 1 only")
+        b, h, w, cin = x.shape
+        fn = conv1x1_bias_act_plain if plain else conv1x1_bias_act
+        y = fn(x.reshape(b * h * w, cin), p["w_mm"], p["b"], act=act)
+        return y.view(b, h, w, -1)
+    wt = p["w"]
+    pad = (wt.shape[-1] - 1) // 2
+    y = F.conv2d(x.permute(0, 3, 1, 2), wt, stride=stride, padding=pad)
+    # No copy when the conv wrote channels-last (it does for channels-last
+    # weights); the kernels need one flat NHWC buffer.
+    y = y.permute(0, 2, 3, 1).contiguous()
+    if not act:
+        return y + p["b"].to(y.dtype)
+    return (bias_silu_plain if plain else bias_silu)(y, p["b"])
+
+
+def _bottleneck(p: Params, x: torch.Tensor, shortcut: bool, cv) -> torch.Tensor:
+    y = cv(p["cv2"], cv(p["cv1"], x))
+    return x + y if shortcut else y
+
+
+def _c2f(p: Params, x: torch.Tensor, shortcut: bool, cv) -> torch.Tensor:
+    """C2f block in the slice form (channel slice of cv1, concat into cv2)."""
+    y = cv(p["cv1"], x)
+    c = y.shape[-1] // 2
+    ys = [y[..., :c], y[..., c:]]
+    for mp in p["m"]:
+        ys.append(_bottleneck(mp, ys[-1], shortcut, cv))
+    return cv(p["cv2"], torch.cat(ys, dim=-1))
+
+
+def _maxpool5(x: torch.Tensor) -> torch.Tensor:
+    """5x5 stride-1 SAME max pool over NHWC (the border pads with -inf)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size=5, stride=1, padding=2)
+    return y.permute(0, 2, 3, 1)
+
+
+def _sppf(p: Params, x: torch.Tensor, cv) -> torch.Tensor:
+    y = cv(p["cv1"], x)
+    pools = [y]
+    for _ in range(3):
+        pools.append(_maxpool5(pools[-1]))
+    return cv(p["cv2"], torch.cat(pools, dim=-1))
+
+
+def _upsample2x(x: torch.Tensor) -> torch.Tensor:
+    b, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c)
+    return x.reshape(b, 2 * h, 2 * w, c)
+
+
+def apply_backbone(params: Params, x: torch.Tensor, dtype=torch.float32,
+                   plain: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backbone + neck. x: (B, H, W, 3) float in [0,1]. Returns (P3, P4, P5)."""
+    def cv(p, t, stride=1, act=True):
+        return _conv(p, t, stride=stride, act=act, plain=plain)
+
+    x = x.to(dtype)
+    x = cv(params["m0"], x, stride=2)
+    x = cv(params["m1"], x, stride=2)
+    x = _c2f(params["m2"], x, True, cv)
+    x = cv(params["m3"], x, stride=2)
+    p3_in = _c2f(params["m4"], x, True, cv)                 # idx 4
+    x = cv(params["m5"], p3_in, stride=2)
+    p4_in = _c2f(params["m6"], x, True, cv)                 # idx 6
+    x = cv(params["m7"], p4_in, stride=2)
+    x = _c2f(params["m8"], x, True, cv)
+    p5_in = _sppf(params["m9"], x, cv)                      # idx 9
+
+    # Top-down
+    x = torch.cat([_upsample2x(p5_in), p4_in], dim=-1)      # 10, 11
+    n12 = _c2f(params["m12"], x, False, cv)
+    x = torch.cat([_upsample2x(n12), p3_in], dim=-1)        # 13, 14
+    p3 = _c2f(params["m15"], x, False, cv)
+    # Bottom-up
+    x = torch.cat([cv(params["m16"], p3, stride=2), n12], dim=-1)    # 16, 17
+    p4 = _c2f(params["m18"], x, False, cv)
+    x = torch.cat([cv(params["m19"], p4, stride=2), p5_in], dim=-1)  # 19, 20
+    p5 = _c2f(params["m21"], x, False, cv)
+    return p3, p4, p5
+
+
+def forward_raw(params: Params, spec: ModelSpec, x: torch.Tensor,
+                dtype=torch.float32, plain: bool = False) -> List[torch.Tensor]:
+    """Full forward. Returns per-level (B, Hi, Wi, 4*reg_max + nc) maps in f32."""
+    feats = apply_backbone(params, x, dtype=dtype, plain=plain)
+    det = params["m22"]
+    outs = []
+    for level, f in enumerate(feats):
+        box = f
+        for i, bp in enumerate(det["cv2"][level]):
+            box = _conv(bp, box, act=(i < 2), plain=plain)
+        cls = f
+        for i, cp in enumerate(det["cv3"][level]):
+            cls = _conv(cp, cls, act=(i < 2), plain=plain)
+        outs.append(torch.cat([box.float(), cls.float()], dim=-1))
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# Decode (DFL + anchor-free box recovery)
+# ---------------------------------------------------------------------------
+
+def anchors_for(spec: ModelSpec, h: int, w: int, offset: float = 0.5
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Anchor centers (A, 2) in feature-grid units and per-anchor stride (A, 1)."""
+    pts, strides = [], []
+    for s in spec.strides:
+        gh, gw = h // s, w // s
+        xs = np.arange(gw, dtype=np.float32) + offset
+        ys = np.arange(gh, dtype=np.float32) + offset
+        gx, gy = np.meshgrid(xs, ys)
+        pts.append(np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1))
+        strides.append(np.full((gh * gw, 1), s, dtype=np.float32))
+    return np.concatenate(pts, 0), np.concatenate(strides, 0)
+
+
+def decode_output_levels(spec: ModelSpec, outs: Sequence[torch.Tensor]
+                         ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Per-level decode: lists of boxes (B, A_l, 4) and probs (B, A_l, nc)."""
+    reg_max, nc = spec.reg_max, spec.num_classes
+    b = outs[0].shape[0]
+    dev = outs[0].device
+    bin_idx = torch.arange(reg_max, dtype=torch.float32, device=dev)
+    boxes_l, probs_l = [], []
+    for o, s in zip(outs, spec.strides):
+        gh, gw = o.shape[1], o.shape[2]
+        bins = o[..., :4 * reg_max].reshape(b, gh, gw, 4, reg_max)
+        dist = torch.sum(torch.softmax(bins, dim=-1) * bin_idx, dim=-1)
+        xs = (torch.arange(gw, dtype=torch.float32, device=dev) + 0.5)
+        ys = (torch.arange(gh, dtype=torch.float32, device=dev) + 0.5)
+        ax = xs[None, None, :].expand(b, gh, gw)
+        ay = ys[None, :, None].expand(b, gh, gw)
+        lt, rb = dist[..., :2], dist[..., 2:]
+        anc = torch.stack([ax, ay], dim=-1)
+        x1y1 = anc - lt
+        x2y2 = anc + rb
+        cxy = (x1y1 + x2y2) / 2.0
+        wh = x2y2 - x1y1
+        boxes_l.append((torch.cat([cxy, wh], dim=-1) * float(s))
+                       .reshape(b, gh * gw, 4))
+        probs_l.append(torch.sigmoid(o[..., 4 * reg_max:])
+                       .reshape(b, gh * gw, nc))
+    return boxes_l, probs_l
+
+
+def decode_outputs(spec: ModelSpec, outs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Decode raw level maps to (B, A, 4 + nc): xywh in input pixels + class
+    probs (DFL softmax expectation -> ltrb, dist2bbox, x stride; sigmoid)."""
+    boxes_l, probs_l = decode_output_levels(spec, outs)
+    return torch.cat([torch.cat(boxes_l, dim=1),
+                      torch.cat(probs_l, dim=1)], dim=-1)
+
+
+def forward_decoded(params: Params, spec: ModelSpec, x: torch.Tensor,
+                    dtype=torch.float32, plain: bool = False) -> torch.Tensor:
+    """(B, A, 4+nc) decoded output — the ONNX `output0` equivalent (transposed)."""
+    return decode_outputs(spec, forward_raw(params, spec, x, dtype=dtype,
+                                            plain=plain))
