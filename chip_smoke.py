@@ -8,23 +8,31 @@ and the script exits non-zero:
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit as nvidia-smi reports them.
-2. build: nvcc builds csrc/*.cu into one library (ops/_build.py).
+2. build: nvcc builds csrc/*.cu into one library (ops/_build.py), in under
+   60 s and with no register spills.
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    on the inputs the serving step gives it (recorded from one plain step of
    the deployed config at batch 8: 24 1x1 convs, 39 bias+SiLU epilogues,
-   one NMS scan), in bf16 and f32, plus the NMS scan on seeded boxes.
-   Times (CUDA events, after warm-up) for the kernel, its plain version and
-   the one PyTorch call that computes the same function, beside the least
-   time the card could take for the same bytes and operations.
+   one NMS scan), in bf16 and f32, plus the NMS scan on seeded boxes. The
+   1x1 GEMM runs each call on both routes: every bf16 call must plan onto
+   the tensor-core kernel, and the CUDA-core kernel is checked in bf16 and
+   f32. Times (CUDA events, after warm-up) for the kernel, its plain
+   version and the one PyTorch call that computes the same function,
+   beside the least time the card could take for the same bytes and
+   operations, in all and call by call (the 1x1 GEMM on both routes;
+   bias+SiLU beside the device time of a launch that moves one vector);
+   the host cost of a TMA map encode.
 4. main path: the deployed config (configs/examples/server-cs16-416.json:
    yolov8n, 416, bf16, real weights) through InferenceEngine.infer_batch and
    dispatch/complete_many, with every kernel's launch count reset just
-   before and read just after. Then the f32 step with kernels against the
+   before and read just after; every 1x1 conv of the bf16 path must have
+   run on the tensor cores. Then the f32 step with kernels against the
    f32 step with plain versions (counts and classes equal, boxes and scores
    within 1e-3), the bf16 detection gate against f32 (twins with IoU >
    0.85, the same class, confidence within 0.03; see bf16_gate for the
    decisions on a threshold), and the step time per batch bucket: wall
-   time, device busy time by kernel (torch.profiler) and the idle share.
+   time, device busy time by kernel (torch.profiler) and the idle share;
+   at batch 8 also each port kernel's device time inside the step.
 5. report: a `kernels:` line, one JSON line of kernel numbers, and the
    result line `{"ok": true, "device": {...}}` last.
 """
@@ -68,10 +76,16 @@ KERNELS = {
     # name: (route, source, the TPU kernel it replaces)
     "nms_suppress": ("cuda", "zero_latency_yolo_tpu_torch/csrc/kernels.cu",
                      "zero_latency_yolo_tpu/ops/nms_pallas.py:33"),
-    "conv1x1_bias_act": ("cuda", "zero_latency_yolo_tpu_torch/csrc/kernels.cu",
+    "conv1x1_bias_act": ("cuda", "zero_latency_yolo_tpu_torch/csrc/conv1x1_sm90.cu",
                          "zero_latency_yolo_tpu/ops/conv1x1_pallas.py:57"),
     "bias_silu": ("cuda", "zero_latency_yolo_tpu_torch/csrc/kernels.cu",
                   "zero_latency_yolo_tpu/ops/act_pallas.py:40"),
+}
+# The device functions of each kernel, as the profiler names them.
+KERNEL_SYMBOLS = {
+    "nms_suppress": ("nms_suppress_kernel",),
+    "conv1x1_bias_act": ("conv1x1_wgmma_kernel", "mm_bias_act_kernel"),
+    "bias_silu": ("bias_silu_vec_kernel", "bias_silu_kernel"),
 }
 
 
@@ -175,8 +189,8 @@ def wall_ms(torch, fn, iters: int = 10, warmup: int = 3) -> float:
 def profile_step(torch, fn, iters: int = 5, top: int = 0) -> tuple:
     """Device time of fn() by kernel (torch.profiler, CUDA activity; only
     the kernel and copy events are summed, not the CPU ops that launched
-    them). Returns (wall ms, device busy ms) per call and prints the `top`
-    kernels."""
+    them). Returns (wall ms, device busy ms, {port kernel: device ms}) per
+    call and prints the `top` kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -192,7 +206,10 @@ def profile_step(torch, fn, iters: int = 5, top: int = 0) -> tuple:
                    if e.device_type == DeviceType.CUDA), reverse=True)
     for ms, n, key in rows[:top]:
         print(f"  {ms:8.4f} ms/step  {n:4d} launches/step  {key[:90]}")
-    return wall, sum(r[0] for r in rows)
+    own = {name: sum(ms for ms, _, key in rows
+                     if any(sym in key for sym in syms))
+           for name, syms in KERNEL_SYMBOLS.items()}
+    return wall, sum(r[0] for r in rows), own
 
 
 def compare(torch, got, want, atol: float, rtol: float):
@@ -255,44 +272,87 @@ def check_kernels(torch, calls, thr: float, dev):
     """Phase 3: every recorded call through the kernel and its plain version
     in bf16 and f32; bf16 times. Returns per-kernel report fields."""
     import torch.nn.functional as F
-    from zero_latency_yolo_tpu_torch.ops import act_cuda, conv1x1_cuda, nms_cuda
+    from zero_latency_yolo_tpu_torch.ops import (_build, act_cuda, conv1x1_cuda,
+                                                 nms_cuda)
     report = {}
 
-    # 1x1 conv GEMM + bias (+SiLU)
+    # 1x1 conv GEMM + bias (+SiLU): every path call on the tensor-core
+    # route (bf16) and on the CUDA-core route (bf16 forced, and f32), each
+    # against the plain version; times of both routes on the same call.
     errs = {"bfloat16": 0.0, "float32": 0.0}
-    ms = plain_ms = lib_ms = bound_ms = bytes_s = ops_s = 0.0
+    ms = ms_simt = plain_ms = lib_ms = bound_ms = bytes_s = ops_s = 0.0
+    routes = {r: 0 for r in conv1x1_cuda.ROUTES}
+    print("conv1x1 path calls (bf16; us per call): M Cin Cout act route bn "
+          "grid | wgmma simt addmm+silu bound", flush=True)
     for (x, w, b), kw in calls["conv1x1_bias_act"]:
         act = kw.get("act", True)
-        for dt, cast in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-            xx, ww = x.to(cast).contiguous(), w.to(cast).contiguous()
-            err, ok = compare(torch, conv1x1_cuda.conv1x1_bias_act(xx, ww, b, act),
-                              conv1x1_cuda.conv1x1_bias_act_plain(xx, ww, b, act),
-                              *TOLERANCE[("conv1x1_bias_act", dt)])
-            require(ok, f"conv1x1 {dt} {tuple(x.shape)}x{tuple(w.shape)} "
-                        f"act={act}: max err {err:.3g} outside tolerance")
+        # w as the path gives it (placed K-major), and row-major, the
+        # layout the CUDA-core kernel reads fastest.
+        w_row = w.contiguous()
+        route = conv1x1_cuda.conv1x1_plan(x, w)
+        routes[route.route] += 1
+        for dt, cast, ww, forced in (
+                ("bfloat16", torch.bfloat16, w, None),
+                ("bfloat16", torch.bfloat16, w_row, "simt"),
+                ("float32", torch.float32, w, None)):
+            xx, ww = x.to(cast), ww.to(cast)  # .to keeps the layout
+            err, ok = compare(torch, conv1x1_cuda.conv1x1_bias_act(
+                xx, ww, b, act, route=forced),
+                conv1x1_cuda.conv1x1_bias_act_plain(xx, ww, b, act),
+                *TOLERANCE[("conv1x1_bias_act", dt)])
+            require(ok, f"conv1x1 {dt} route={forced or 'plan'} "
+                        f"{tuple(x.shape)}x{tuple(w.shape)} act={act}: max err "
+                        f"{err:.3g} outside tolerance")
             errs[dt] = max(errs[dt], err)
         m, cin = x.shape
         cout = w.shape[1]
         bl = b.to(x.dtype)
-        ms += time_ms(torch, lambda: conv1x1_cuda.conv1x1_bias_act(x, w, b, act))
+        t_tc = time_ms(torch, lambda: conv1x1_cuda.conv1x1_bias_act(
+            x, w, b, act))
+        t_simt = time_ms(torch, lambda: conv1x1_cuda.conv1x1_bias_act(
+            x, w_row, b, act, route="simt"))
+        t_lib = time_ms(torch, (lambda: F.silu(torch.addmm(bl, x, w))) if act
+                        else (lambda: torch.addmm(bl, x, w)))
+        ms, ms_simt, lib_ms = ms + t_tc, ms_simt + t_simt, lib_ms + t_lib
         plain_ms += time_ms(torch, lambda: conv1x1_cuda.conv1x1_bias_act_plain(
             x, w, b, act))
-        lib_ms += time_ms(torch, (lambda: F.silu(torch.addmm(bl, x, w))) if act
-                          else (lambda: torch.addmm(bl, x, w)))
         t_bytes = ((m * cin + cin * cout + m * cout) * x.element_size()
                    + cout * 4) / HBM_BYTES_PER_S
         t_ops = 2.0 * m * cin * cout / PEAK_OPS_PER_S["bfloat16"]
         bound_ms += 1e3 * max(t_bytes, t_ops)
         bytes_s, ops_s = bytes_s + t_bytes, ops_s + t_ops
+        print(f"  {m:6d} {cin:4d} {cout:4d} {int(act)} {route.route} "
+              f"{route.bn:3d} {route.grid:4d} | {1e3 * t_tc:8.2f} "
+              f"{1e3 * t_simt:8.2f} {1e3 * t_lib:8.2f} "
+              f"{1e6 * max(t_bytes, t_ops):8.2f}", flush=True)
+    require(routes["wgmma"] == len(calls["conv1x1_bias_act"]),
+            f"bf16 path calls by route {routes}: all must take the tensor "
+            "cores")
+    x = calls["conv1x1_bias_act"][0][0][0]
+    enc_us = _build.kernels().lib.zlt_tma_encode_us(
+        x.data_ptr(), x.shape[0], x.shape[1], 64, 2000)
+    require(enc_us >= 0, "cuTensorMapEncodeTiled unavailable")
+    n_calls = len(calls["conv1x1_bias_act"])
+    print(f"TMA map encode on the host: {enc_us:.3f} us each, 2 a call, "
+          f"{2 * n_calls * enc_us:.1f} us a step of {n_calls} calls",
+          flush=True)
     report["conv1x1_bias_act"] = dict(
-        calls=len(calls["conv1x1_bias_act"]), max_abs_err=errs["bfloat16"],
-        max_abs_err_f32=errs["float32"], ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, bound_ms=bound_ms,
-        bound_by="bytes" if bytes_s >= ops_s else "operations")
+        calls=n_calls, max_abs_err=errs["bfloat16"],
+        max_abs_err_f32=errs["float32"], ms=ms, ms_simt=ms_simt,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+        bound_by="bytes" if bytes_s >= ops_s else "operations",
+        routes=routes, encode_us=enc_us)
 
-    # Bias + SiLU
+    # Bias + SiLU, with the device time of a launch that does no work to
+    # speak of (one 16-byte vector): the per-launch floor.
     errs = {"bfloat16": 0.0, "float32": 0.0}
     ms = plain_ms = lib_ms = bound_ms = bytes_s = ops_s = 0.0
+    tiny = torch.ones(1, 1, 1, 8, dtype=torch.bfloat16, device=dev)
+    tiny_b = torch.zeros(8, device=dev)
+    floor_ms = time_ms(torch, lambda: act_cuda.bias_silu(tiny, tiny_b))
+    print(f"bias_silu path calls (bf16; us per call): shape | kernel "
+          f"F.silu(y+b) bound kernel-floor; launch floor (one vector) "
+          f"{1e3 * floor_ms:.2f} us", flush=True)
     for (y, b), _ in calls["bias_silu"]:
         for dt, cast in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             yy = y.to(cast).contiguous()
@@ -303,18 +363,22 @@ def check_kernels(torch, calls, thr: float, dev):
                         "outside tolerance")
             errs[dt] = max(errs[dt], err)
         bl = b.to(y.dtype)
-        ms += time_ms(torch, lambda: act_cuda.bias_silu(y, b))
+        t_k = time_ms(torch, lambda: act_cuda.bias_silu(y, b))
+        t_lib = time_ms(torch, lambda: F.silu(y + bl))
+        ms, lib_ms = ms + t_k, lib_ms + t_lib
         plain_ms += time_ms(torch, lambda: act_cuda.bias_silu_plain(y, b))
-        lib_ms += time_ms(torch, lambda: F.silu(y + bl))
         n = y.numel()
         t_bytes = (2 * n * y.element_size() + b.numel() * 4) / HBM_BYTES_PER_S
         t_ops = 4.0 * n / PEAK_OPS_PER_S["float32"]  # add, exp, add, divide
         bound_ms += 1e3 * max(t_bytes, t_ops)
         bytes_s, ops_s = bytes_s + t_bytes, ops_s + t_ops
+        print(f"  {'x'.join(map(str, y.shape)):>16} | {1e3 * t_k:7.2f} "
+              f"{1e3 * t_lib:7.2f} {1e6 * max(t_bytes, t_ops):7.2f} "
+              f"{1e3 * (t_k - floor_ms):7.2f}", flush=True)
     report["bias_silu"] = dict(
         calls=len(calls["bias_silu"]), max_abs_err=errs["bfloat16"],
         max_abs_err_f32=errs["float32"], ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, bound_ms=bound_ms,
+        library_ms=lib_ms, bound_ms=bound_ms, floor_ms=floor_ms,
         bound_by="bytes" if bytes_s >= ops_s else "operations")
 
     # NMS scan: the path's own inputs, then seeded boxes at B = 8, K = 256.
@@ -349,9 +413,13 @@ def check_kernels(torch, calls, thr: float, dev):
         tol = ("exact" if name == "nms_suppress" else
                f"(atol, rtol) bf16 {TOLERANCE[(name, 'bfloat16')]} "
                f"f32 {TOLERANCE[(name, 'float32')]}")
+        simt = (f" simt_ms={r['ms_simt']:.4f} routes={r['routes']}"
+                if "ms_simt" in r else "")
+        if "floor_ms" in r:
+            simt = f" launch_floor_ms={r['floor_ms']:.4f}"
         print(f"kernel {name}: calls/step={r['calls']} max_abs_err "
               f"bf16={r['max_abs_err']:.3g} f32={r['max_abs_err_f32']:.3g} "
-              f"(tolerance {tol}) kernel_ms={r['ms']:.4f} "
+              f"(tolerance {tol}) kernel_ms={r['ms']:.4f}{simt} "
               f"plain_ms={r['plain_ms']:.4f} library_ms={lib} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
     return report
@@ -542,9 +610,16 @@ def main() -> None:
         k = _build.kernels()
         print(f"built {k.path.name} in {k.build_seconds:.2f} s (nvcc only)",
               flush=True)
+        spills = []
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("  ptxas: " + line.split("ptxas info    :")[-1].strip())
+            if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" \
+                    not in line:
+                spills.append(line.strip())
+        require(not spills, f"register spills: {spills}")
+        require(k.build_seconds < 60.0,
+                f"nvcc took {k.build_seconds:.1f} s (limit 60 s)")
 
     cfg = ServerConfig.load(str(CONFIG), create_if_missing=False)
     cfg.model_path = str(ROOT / cfg.model_path)
@@ -584,6 +659,7 @@ def main() -> None:
                                  data=synthetic_frame(w, h, seed=4 + i, t=0.3 * i))
                 for i, (w, h) in enumerate([(800, 600)] * 11 + [(1920, 1080)] * 2)]
         nms_cuda.launches = conv1x1_cuda.launches = act_cuda.launches = 0
+        conv1x1_cuda.launches_by_route = {r: 0 for r in conv1x1_cuda.ROUTES}
         results = engine.infer_batch(reqs)
         pend = [engine.dispatch(reqs[:4]), engine.dispatch(reqs[4:8])]
         results += [r for rs in engine.complete_many(pend) for r in rs]
@@ -591,11 +667,14 @@ def main() -> None:
         launches = {"nms_suppress": nms_cuda.launches,
                     "conv1x1_bias_act": conv1x1_cuda.launches,
                     "bias_silu": act_cuda.launches}
+        by_route = dict(conv1x1_cuda.launches_by_route)
         print(f"main path: {len(results)} results from 5 steps, launches "
-              f"{launches}", flush=True)
+              f"{launches}, conv1x1 by route {by_route}", flush=True)
         require(len(results) == len(reqs) + 8, "missing results")
         require(all(n > 0 for n in launches.values()),
                 f"a kernel was not launched on the main path: {launches}")
+        require(by_route["wgmma"] == launches["conv1x1_bias_act"],
+                f"bf16 1x1 convs off the tensor cores: {by_route}")
         ndet = sum(len(r.detections) for r in results)
         require(ndet > 0, "no detections on the main path")
         require(all(0.0 <= v <= 1.0 for r in results for d in r.detections
@@ -659,6 +738,7 @@ def main() -> None:
               f"counts {[len(r.detections) for r in rb]} vs "
               f"{[len(r.detections) for r in rf]}", flush=True)
 
+        step_ms = {n: None for n in KERNELS}
         for b in engine.batch_buckets:
             frames_d, hs, ws = staged([synthetic_frame(800, 600, seed=s)
                                        for s in range(b)])
@@ -669,7 +749,13 @@ def main() -> None:
                             engine._class_weights, cfg.confidence_threshold,
                             cfg.nms_threshold)
             wall = wall_ms(torch, run)
-            pwall, busy = profile_step(torch, run, top=14 if b == 8 else 0)
+            pwall, busy, own = profile_step(torch, run,
+                                            top=14 if b == 8 else 0)
+            if b == 8:
+                step_ms = own
+                print("in-step device time, batch 8 (profiler): " + ", ".join(
+                    f"{n} {ms:.4f} ms/step" for n, ms in own.items()),
+                    flush=True)
             print(f"step bf16 batch {b} bucket {bucket[0]}x{bucket[1]}: wall "
                   f"{wall:.3f} ms/batch ({wall / b:.3f} ms/frame); device "
                   f"busy {busy:.3f} ms/batch (profiler; wall under it "
@@ -684,7 +770,10 @@ def main() -> None:
          "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"],
          "bound_ms": report[name]["bound_ms"],
          "bound_by": report[name]["bound_by"],
-         "library_ms": report[name]["library_ms"]}
+         "library_ms": report[name]["library_ms"],
+         "step_ms": step_ms[name],
+         **({"launches_by_route": by_route, "ms_simt": report[name]["ms_simt"]}
+            if name == "conv1x1_bias_act" else {})}
         for name, (route, source, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,236 @@
+"""The host side of the port's kernels, which decides what runs on the card:
+the 1x1 GEMM's route and tile plan (ops/conv1x1_cuda.py), a NumPy model of
+the bias+SiLU kernel's thread -> vector mapping (ops/act_cuda.py), and the
+K-major weight layout that place_params gives the tensor-core kernel.
+Shapes are recorded from the port's own forward at the deployed model
+(yolov8n, 4 classes, 416 px). CPU only."""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_torch_serving_shapes import SERVING_BIAS_SILU_B8, SERVING_CONV1X1_B8  # noqa: E402
+from zero_latency_yolo_tpu_torch.models import yolov8 as ym  # noqa: E402
+from zero_latency_yolo_tpu_torch.models.weights import (  # noqa: E402
+    params_from_jax, place_params)
+from zero_latency_yolo_tpu_torch.ops import act_cuda, conv1x1_cuda  # noqa: E402
+
+BATCHES = (1, 2, 4, 8)
+H100_SMS = 132
+# One resident wave of the bias+SiLU vector kernel on an H100 if 8 blocks
+# of 256 threads fit an SM; the model below also runs a much smaller wave,
+# where each thread takes many vectors.
+WAVES = (H100_SMS * 8 * 256, 1000)
+# The most dynamic shared memory one block may have on Hopper (227 KB).
+SMEM_LIMIT = 232448
+
+
+@functools.cache
+def _path_calls(batch: int):
+    """(1x1 calls as (M, Cin, Cout, act), bias+SiLU input shapes) of one
+    plain f32 forward of yolov8n at 416 px, in the order the step makes
+    them."""
+    spec = ym.get_spec("yolov8n", 4)
+    params = place_params(params_from_jax(ym.init_params(0, spec)), "cpu",
+                          torch.float32)
+    conv, act = [], []
+    saved = ym.conv1x1_bias_act_plain, ym.bias_silu_plain
+
+    def rec_conv(x, w, b, act=True):
+        conv.append((x.shape[0], x.shape[1], w.shape[1], act))
+        return saved[0](x, w, b, act=act)
+
+    def rec_act(y, b):
+        act.append(tuple(y.shape))
+        return saved[1](y, b)
+
+    ym.conv1x1_bias_act_plain, ym.bias_silu_plain = rec_conv, rec_act
+    try:
+        with torch.inference_mode():
+            ym.forward_raw(params, spec, torch.rand(batch, 416, 416, 3),
+                           plain=True)
+    finally:
+        ym.conv1x1_bias_act_plain, ym.bias_silu_plain = saved
+    return conv, act
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+def test_path_has_the_recorded_calls(batch):
+    """24 1x1 convs and 39 bias+SiLU passes a step; at batch 8 exactly the
+    shapes the card tests (tests/test_torch_cuda.py) run."""
+    conv, act = _path_calls(batch)
+    assert len(conv) == 24 and len(act) == 39
+    want_conv = [(m * batch // 8, cin, cout, a)
+                 for m, cin, cout, a in SERVING_CONV1X1_B8]
+    assert conv == want_conv
+    assert act == [(batch,) + s[1:] for s in SERVING_BIAS_SILU_B8]
+
+
+@pytest.mark.parametrize("index", range(24))
+@pytest.mark.parametrize("batch", BATCHES)
+def test_plan_conv1x1_serving_call(batch, index):
+    m, cin, cout, act = _path_calls(batch)[0][index]
+    assert conv1x1_cuda.plan_conv1x1(m, cin, cout, torch.float32).route == "simt"
+    plan = conv1x1_cuda.plan_conv1x1(m, cin, cout, torch.bfloat16,
+                                     sms=H100_SMS)
+    assert plan.route == "wgmma"
+    assert plan.bn in conv1x1_cuda.N_TILES
+    assert plan.stages == conv1x1_cuda.N_TILES[plan.bn]
+    # The N tile: a multiple of 8 (wgmma's n), holding Cout or dividing it.
+    assert plan.bn % 8 == 0 and (plan.bn >= cout or cout % plan.bn == 0)
+    # Tiles cover M x Cout exactly once: the grid of BM x BN tiles reaches
+    # past each edge by less than one tile, and tile t -> (t // tiles_n,
+    # t % tiles_n) is a bijection onto it.
+    assert (plan.tiles_m - 1) * plan.bm < m <= plan.tiles_m * plan.bm
+    assert (plan.tiles_n - 1) * plan.bn < cout <= plan.tiles_n * plan.bn
+    t = np.arange(plan.tiles)
+    cells = (t // plan.tiles_n) * plan.tiles_n + t % plan.tiles_n
+    assert np.array_equal(np.sort(cells), t)
+    # The persistent blocks take tiles block, block + grid, ...: every tile
+    # exactly once.
+    assert 1 <= plan.grid <= plan.tiles
+    walked = np.concatenate([np.arange(b, plan.tiles, plan.grid)
+                             for b in range(plan.grid)])
+    assert np.array_equal(np.sort(walked), t)
+    assert plan.smem == conv1x1_cuda.wgmma_smem_bytes(plan.bn, plan.stages)
+    assert plan.smem <= SMEM_LIMIT
+    # One resident wave at most: the blocks an SM holds by shared memory.
+    per_sm = min(conv1x1_cuda.BLOCKS_PER_SM,
+                 conv1x1_cuda.SMEM_PER_SM // (plan.smem + 1024))
+    assert per_sm >= 1 and plan.grid <= per_sm * H100_SMS
+
+
+@pytest.mark.parametrize("bn,stages", sorted(conv1x1_cuda.N_TILES.items()))
+def test_every_tile_instance_fits_two_blocks_an_sm(bn, stages):
+    smem = conv1x1_cuda.wgmma_smem_bytes(bn, stages)
+    assert smem % 1024 == 0 and 2 * (smem + 1024) <= conv1x1_cuda.SMEM_PER_SM
+
+
+def _x(m, cin, dtype, offset=0):
+    flat = torch.zeros(m * cin + offset, dtype=dtype)
+    return flat[offset:].view(m, cin)
+
+
+@pytest.mark.parametrize("m,cin,cout,dtype,offset,kmajor,route", [
+    (5408, 192, 128, torch.bfloat16, 0, True, "wgmma"),
+    (5408, 192, 128, torch.float32, 0, True, "simt"),     # f32: CUDA cores
+    (5408, 12, 128, torch.bfloat16, 0, True, "simt"),     # Cin % 8 != 0
+    (1352, 3, 4, torch.bfloat16, 0, True, "simt"),
+    (5408, 192, 128, torch.bfloat16, 1, True, "simt"),    # x 2 bytes off 16
+    (5408, 192, 128, torch.bfloat16, 8, True, "wgmma"),   # x 16 bytes off
+    (5408, 192, 128, torch.bfloat16, 0, False, "simt"),   # w row-major
+    (1352, 64, 4, torch.bfloat16, 0, False, "simt"),
+])
+def test_route_by_type_shape_and_alignment(m, cin, cout, dtype, offset,
+                                           kmajor, route):
+    x = _x(m, cin, dtype, offset)
+    w = torch.zeros(cin, cout, dtype=dtype)
+    if kmajor:
+        w = conv1x1_cuda.k_major(w)
+    assert conv1x1_cuda.conv1x1_plan(x, w).route == route
+
+
+def test_misaligned_weight_copy_routes_to_cuda_cores():
+    x = _x(64, 64, torch.bfloat16)
+    w_t = torch.zeros(64 * 64 + 4, dtype=torch.bfloat16)[4:].view(64, 64)
+    assert conv1x1_cuda.conv1x1_plan(x, w_t.t()).route == "simt"
+    assert conv1x1_cuda.conv1x1_plan(x, w_t.clone().t()).route == "wgmma"
+
+
+def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(100, 16, generator=g).bfloat16()
+    w = torch.randn(16, 8, generator=g).bfloat16()
+    b = torch.randn(8, generator=g)
+    before = (conv1x1_cuda.launches, dict(conv1x1_cuda.launches_by_route))
+    for ww in (w, conv1x1_cuda.k_major(w)):
+        got = conv1x1_cuda.conv1x1_bias_act(x, ww, b)
+        assert torch.equal(got, conv1x1_cuda.conv1x1_bias_act_plain(x, w, b))
+    assert (conv1x1_cuda.launches, conv1x1_cuda.launches_by_route) == before
+
+
+def _bias_silu_model(plan, c, width):
+    """The vector kernel's loop (csrc/kernels.cu bias_silu_vec_kernel) over
+    all threads at once: thread t starts at vector t and steps UNROLL *
+    stride, taking vectors v + u * stride. Returns, per vector, how many
+    threads took it, and whether each take kept the thread's channel
+    group (the kernel loads the biases of channels (t % groups) * width
+    once)."""
+    unroll = act_cuda.UNROLL
+    taken = np.zeros(plan.nvec, np.int64)
+    same_group = True
+    t = np.arange(plan.stride)
+    for v0 in range(0, plan.nvec, unroll * plan.stride):
+        for u in range(unroll):
+            v = t + v0 + u * plan.stride
+            v = v[v < plan.nvec]
+            np.add.at(taken, v, 1)
+            # vector v holds channels (v * width) % c .. + width
+            same_group &= bool(np.all((v * width) % c
+                                      == (v % plan.stride % plan.groups) * width))
+    return taken, same_group
+
+
+EDGE_SHAPES = [(1, 1, 1, 8), (1, 1, 1, 16), (1, 2, 3, 16), (2, 5, 7, 24),
+               (3, 9, 9, 64), (1, 4, 4, 256), (2, 13, 13, 8), (1, 1, 2, 256)]
+
+
+@pytest.mark.parametrize("wave", WAVES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", SERVING_BIAS_SILU_B8 + EDGE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bias_silu_mapping_covers_each_vector_once(shape, dtype, wave):
+    n, c = int(np.prod(shape)), shape[-1]
+    size = torch.empty((), dtype=dtype).element_size()
+    width = 16 // size
+    plan = act_cuda.plan_bias_silu(n, c, size, True, wave)
+    assert plan.vec
+    assert plan.nvec == n // width and plan.groups == c // width
+    assert plan.stride % plan.groups == 0
+    assert plan.stride <= max(plan.nvec, plan.groups)
+    assert plan.stride <= max(wave, plan.groups)
+    taken, same_group = _bias_silu_model(plan, c, width)
+    assert np.all(taken == 1)
+    assert same_group
+
+
+@pytest.mark.parametrize("c,elem,aligned", [(12, 2, True), (6, 4, True),
+                                            (3, 2, True), (64, 2, False),
+                                            (64, 4, False)])
+def test_bias_silu_scalar_kernel_where_vectors_do_not_fit(c, elem, aligned):
+    n = 7 * c
+    plan = act_cuda.plan_bias_silu(n, c, elem, aligned, WAVES[0])
+    assert not plan.vec and plan.stride == n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_place_params_makes_the_k_major_copy(dtype):
+    """Every 1x1 matrix is placed once, K-major, with its values; no
+    second copy."""
+    spec = ym.get_spec("yolov8p", 4)
+    tree = params_from_jax(ym.init_params(1, spec))
+    placed = place_params(tree, "cpu", dtype)
+    pairs = []
+
+    def walk(src, dst):
+        if isinstance(src, list):
+            for s_, d_ in zip(src, dst):
+                walk(s_, d_)
+        elif "b" in src:
+            pairs.append((src, dst))
+        else:
+            for k in src:
+                walk(src[k], dst[k])
+    walk(tree, placed)
+    mm = [(s_, d_) for s_, d_ in pairs if "w_mm" in s_]
+    assert mm
+    for src, dst in mm:
+        assert set(dst) == {"w_mm", "b"}
+        cin, cout = src["w_mm"].shape
+        w = dst["w_mm"]
+        assert w.shape == (cin, cout) and w.dtype == dtype
+        assert w.stride() == (1, cin) and w.t().is_contiguous()
+        assert torch.equal(w, src["w_mm"].to(dtype))

@@ -1,13 +1,16 @@
 // Hand-written Hopper (sm_90a) kernels of the PyTorch port's serving step.
 //
-// One translation unit with a plain C interface, compiled by nvcc into one
-// shared library and bound with ctypes (ops/_build.py). No PyTorch header is
+// A plain C interface, compiled together with conv1x1_sm90.cu (the
+// tensor-core 1x1 GEMM) by one nvcc call into one shared library and bound
+// with ctypes (ops/_build.py). No PyTorch header is
 // included. Every entry point launches on the stream it is given, does not
 // synchronise, allocates nothing, and returns cudaGetLastError().
 //
 //   zlt_nms_suppress      greedy same-class NMS suppression scan
 //                         (replaces ops/nms_pallas.py _suppress_kernel)
-//   zlt_conv1x1_bias_act  1x1 conv as a GEMM with a bias(+SiLU) epilogue
+//   zlt_conv1x1_bias_act  1x1 conv as a GEMM with a bias(+SiLU) epilogue on
+//                         the CUDA cores: f32, and bf16 shapes the
+//                         tensor-core kernel of conv1x1_sm90.cu does not take
 //                         (replaces ops/conv1x1_pallas.py _mm_bias_silu_kernel
 //                         and _mm_bias_kernel)
 //   zlt_bias_silu         elementwise silu(y + b) over a flat NHWC buffer
@@ -64,8 +67,11 @@ __global__ void nms_suppress_kernel(const float* __restrict__ iou,
 }
 
 // ---------------------------------------------------------------------------
-// 2. 1x1 conv GEMM: out[m, n] = act(sum_k x[m, k] w[k, n] + b[n]).
-// 64x64 output tile per 256-thread block, 16-deep k-steps staged in shared
+// 2. 1x1 conv GEMM: out[m, n] = act(sum_k x[m, k] w[k, n] + b[n]), with w
+// row-major (w[k * n + n']) or, for KMajor, K-major (w[n' * kdim + k]) as
+// place_params lays it out. The layout is a template flag, not strides read
+// at run time, so that each instance's address arithmetic stays what it
+// would be with one layout only. 64x64 output tile per 256-thread block, 16-deep k-steps staged in shared
 // memory as f32, a 4x4 register tile per thread, f32 accumulation, the bias
 // and SiLU applied to the accumulator before the one store. Ragged M, N and
 // K edges are masked.
@@ -75,7 +81,7 @@ constexpr int kBN = 64;
 constexpr int kBK = 16;
 constexpr int kGemmThreads = 256;
 
-template <typename T>
+template <typename T, bool KMajor>
 __global__ void __launch_bounds__(kGemmThreads)
 mm_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
                    const float* __restrict__ bias, T* __restrict__ out, int m,
@@ -104,7 +110,8 @@ mm_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int r = idx / kBN, c = idx % kBN;
       const int gk = k0 + r, gn = n0 + c;
       bs[r][c] = (gk < kdim && gn < n)
-                     ? to_f32(w[static_cast<size_t>(gk) * n + gn])
+                     ? to_f32(KMajor ? w[static_cast<size_t>(gn) * kdim + gk]
+                                     : w[static_cast<size_t>(gk) * n + gn])
                      : 0.0f;
     }
     __syncthreads();
@@ -138,68 +145,113 @@ mm_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// 3. Bias + SiLU over a flat NHWC buffer of n elements with c channels
-// (bias index = i % c). Memory bound: one read and one write per element,
-// 16-byte vector loads and stores when c is a multiple of the vector width
-// and the buffers are 16-byte aligned, a scalar grid-stride loop otherwise.
+// 3. Bias + SiLU over a flat NHWC buffer of n elements with c channels.
+// Bound by bytes: one read and one write per element against a handful of
+// f32 operations. At the HBM rate an SM must finish about 0.4 16-byte
+// vectors a cycle, so the instructions spent on each vector may set the
+// pace of a large map; a small map is set by the fixed cost of a launch.
+//
+// bias_silu_vec_kernel (c a multiple of the vector width kV, 16-byte
+// aligned buffers): vector v of the buffer holds channels
+// (v % (c / kV)) * kV .. + kV. Thread t takes vectors t, t + stride,
+// t + 2 * stride, ..., where the host makes `stride` (the threads that work)
+// a multiple of c / kV: so every vector of one thread has the same channel
+// group, its kV biases are loaded into registers once, and no division is
+// left in the loop. It starts kUnroll independent 16-byte loads before the
+// math. Offsets are 32-bit (the wrapper refuses n >= 2^31). The host sizes
+// the grid to one resident wave (zlt_bias_silu_wave_threads) or to the
+// buffer, whichever is smaller. ops/act_cuda.py plan_bias_silu computes
+// the stride, and the CPU tests model this mapping in NumPy.
+//
+// Instructions executed per bf16 vector (8 elements) on the common path,
+// read from the SASS (cuobjdump -sass, sm_90a, CUDA 12.9): about 268 in the
+// earlier kernel (a remainder per vector, 8 dependent bias loads, 8 expf
+// and 8 IEEE divides), about 193 here (the 8 expf and 8 divides, the bf16
+// unpack and pack, the address and the loop). Most of the 39 serving calls
+// are small enough that a launch's fixed latency, not these instructions,
+// sets their time (PERF.md gives the per-call split).
+//
+// bias_silu_kernel: the scalar grid-stride loop for any other c or
+// alignment.
 // ---------------------------------------------------------------------------
+constexpr int kActThreads = 256;
+constexpr int kUnroll = 4;
+
 template <typename T>
-__global__ void bias_silu_vec_kernel(const T* __restrict__ y,
-                                     const float* __restrict__ bias,
-                                     T* __restrict__ out, long long nvec, int c) {
+__global__ void __launch_bounds__(kActThreads)
+bias_silu_vec_kernel(const T* __restrict__ y, const float* __restrict__ bias,
+                     T* __restrict__ out, int nvec, int groups, int stride) {
   constexpr int kV = 16 / sizeof(T);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long v = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       v < nvec; v += stride) {
-    const uint4 raw = reinterpret_cast<const uint4*>(y)[v];
-    const T* e = reinterpret_cast<const T*>(&raw);
-    const int c0 = static_cast<int>((v * kV) % c);
-    uint4 res;
-    T* r = reinterpret_cast<T*>(&res);
+  const int t = blockIdx.x * kActThreads + threadIdx.x;
+  if (t >= stride) return;
+  float bv[kV];
+  const int c0 = (t % groups) * kV;  // the thread's channel group, once
 #pragma unroll
-    for (int t = 0; t < kV; ++t) r[t] = from_f32<T>(silu(to_f32(e[t]) + bias[c0 + t]));
-    reinterpret_cast<uint4*>(out)[v] = res;
+  for (int e = 0; e < kV; ++e) bv[e] = bias[c0 + e];
+  const uint4* src = reinterpret_cast<const uint4*>(y);
+  uint4* dst = reinterpret_cast<uint4*>(out);
+  for (int v = t; v < nvec; v += kUnroll * stride) {
+    uint4 raw[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (v + u * stride < nvec) raw[u] = src[v + u * stride];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (v + u * stride >= nvec) break;
+      const T* e = reinterpret_cast<const T*>(&raw[u]);
+      uint4 res;
+      T* r = reinterpret_cast<T*>(&res);
+#pragma unroll
+      for (int q = 0; q < kV; ++q) r[q] = from_f32<T>(silu(to_f32(e[q]) + bv[q]));
+      dst[v + u * stride] = res;
+    }
   }
 }
 
 template <typename T>
 __global__ void bias_silu_kernel(const T* __restrict__ y,
                                  const float* __restrict__ bias,
-                                 T* __restrict__ out, long long n, int c) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       i < n; i += stride) {
-    out[i] = from_f32<T>(silu(to_f32(y[i]) + bias[i % c]));
+                                 T* __restrict__ out, int n, int c) {
+  // Unsigned: i + stride stays below 2^32 for every n < 2^31.
+  const unsigned stride = gridDim.x * blockDim.x;
+  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < unsigned(n);
+       i += stride) {
+    out[i] = from_f32<T>(silu(to_f32(y[i]) + bias[i % unsigned(c)]));
   }
 }
 
 template <typename T>
-void launch_bias_silu(const void* y, const void* bias, void* out, long long n,
-                      int c, cudaStream_t stream) {
+int launch_bias_silu(const void* y, const void* bias, void* out, int n, int c,
+                     int vec, int stride, cudaStream_t stream) {
   constexpr int kV = 16 / sizeof(T);
-  constexpr int kThreads = 256;
-  constexpr long long kMaxBlocks = 132 * 16;  // grid-stride beyond 16 per SM
-  const bool vec = c % kV == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const long long work = vec ? n / kV : n;
-  long long blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (stride < 1) return cudaErrorInvalidValue;
+  const int blocks = (stride + kActThreads - 1) / kActThreads;
   if (vec) {
-    bias_silu_vec_kernel<T><<<static_cast<int>(blocks), kThreads, 0, stream>>>(
+    const int groups = c / kV;
+    if (c % kV != 0 || stride % groups != 0 ||
+        reinterpret_cast<uintptr_t>(y) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(out) % 16 != 0)
+      return cudaErrorInvalidValue;
+    bias_silu_vec_kernel<T><<<blocks, kActThreads, 0, stream>>>(
         static_cast<const T*>(y), static_cast<const float*>(bias),
-        static_cast<T*>(out), work, c);
+        static_cast<T*>(out), n / kV, groups, stride);
   } else {
-    bias_silu_kernel<T><<<static_cast<int>(blocks), kThreads, 0, stream>>>(
+    bias_silu_kernel<T><<<blocks, kActThreads, 0, stream>>>(
         static_cast<const T*>(y), static_cast<const float*>(bias),
         static_cast<T*>(out), n, c);
   }
+  return cudaGetLastError();
 }
 
 template <typename T>
 void launch_mm(const void* x, const void* w, const void* bias, void* out,
-               int m, int kdim, int n, int act, cudaStream_t stream) {
+               int m, int kdim, int n, int act, int w_kmajor,
+               cudaStream_t stream) {
   const dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
-  mm_bias_act_kernel<T><<<grid, kGemmThreads, 0, stream>>>(
+  auto kernel = w_kmajor ? mm_bias_act_kernel<T, true>
+                         : mm_bias_act_kernel<T, false>;
+  kernel<<<grid, kGemmThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(bias), static_cast<T*>(out), m, kdim, n, act);
 }
@@ -224,35 +276,52 @@ int zlt_nms_suppress(const void* iou, const void* same, const void* valid,
   return cudaGetLastError();
 }
 
+// w (kdim, n) row-major, or K-major where w_kmajor is 1.
 int zlt_conv1x1_bias_act(const void* x, const void* w, const void* bias,
                          void* out, int m, int kdim, int n, int act, int dtype,
-                         void* stream) {
+                         int w_kmajor, void* stream) {
   if (m < 0 || kdim < 1 || n < 1) return cudaErrorInvalidValue;
   if (m == 0) return cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    launch_mm<float>(x, w, bias, out, m, kdim, n, act, s);
+    launch_mm<float>(x, w, bias, out, m, kdim, n, act, w_kmajor, s);
   } else if (dtype == 1) {
-    launch_mm<__nv_bfloat16>(x, w, bias, out, m, kdim, n, act, s);
+    launch_mm<__nv_bfloat16>(x, w, bias, out, m, kdim, n, act, w_kmajor, s);
   } else {
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-int zlt_bias_silu(const void* y, const void* bias, void* out, long long n,
-                  int c, int dtype, void* stream) {
+// Threads of one resident wave of bias_silu_vec_kernel on the current
+// device: blocks an SM holds at once x SMs x threads a block.
+int zlt_bias_silu_wave_threads(int dtype) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return -1;
+  const cudaError_t e =
+      dtype == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &per_sm, bias_silu_vec_kernel<float>, kActThreads, 0)
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &per_sm, bias_silu_vec_kernel<__nv_bfloat16>,
+                       kActThreads, 0);
+  return e == cudaSuccess ? per_sm * sms * kActThreads : -1;
+}
+
+// silu(y + bias) over n elements with c channels. vec = 1 takes the vector
+// kernel with `stride` working threads (a multiple of c / vector width);
+// vec = 0 the scalar loop on `stride` threads. Plan: ops/act_cuda.py.
+int zlt_bias_silu(const void* y, const void* bias, void* out, int n, int c,
+                  int dtype, int vec, int stride, void* stream) {
   if (n < 0 || c < 1 || n % c != 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch_bias_silu<float>(y, bias, out, n, c, s);
-  } else if (dtype == 1) {
-    launch_bias_silu<__nv_bfloat16>(y, bias, out, n, c, s);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (dtype == 0) return launch_bias_silu<float>(y, bias, out, n, c, vec, stride, s);
+  if (dtype == 1)
+    return launch_bias_silu<__nv_bfloat16>(y, bias, out, n, c, vec, stride, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

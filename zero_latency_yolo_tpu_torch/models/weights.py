@@ -20,6 +20,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..ops.conv1x1_cuda import k_major
 from .yolov8 import (VARIANTS, ModelSpec, _depth, fold_batchnorm, get_spec,
                      init_params)
 
@@ -227,7 +228,8 @@ def params_from_jax(tree: Params) -> Params:
 
 def place_params(params: Params, device, dtype: torch.dtype) -> Params:
     """Copy device-form params to `device`: kernels in `dtype` (channels-last
-    OIHW, so convs write NHWC), biases in f32."""
+    OIHW, so convs write NHWC; a 1x1 matrix K-major, the layout the
+    tensor-core 1x1 kernel reads, laid out here once), biases in f32."""
     def walk(node):
         if isinstance(node, list):
             return [walk(v) for v in node]
@@ -235,7 +237,7 @@ def place_params(params: Params, device, dtype: torch.dtype) -> Params:
             return {k: walk(v) for k, v in node.items()}
         out = {"b": node["b"].to(device=device, dtype=torch.float32)}
         if "w_mm" in node:
-            out["w_mm"] = node["w_mm"].to(device=device, dtype=dtype)
+            out["w_mm"] = k_major(node["w_mm"].to(device=device, dtype=dtype))
         else:
             out["w"] = node["w"].to(device=device, dtype=dtype).contiguous(
                 memory_format=torch.channels_last)

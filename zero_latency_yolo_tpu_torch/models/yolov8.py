@@ -231,7 +231,8 @@ def fold_batchnorm(params: Params, eps: float = BN_EPS) -> Params:
 # ---------------------------------------------------------------------------
 # Forward pass. Every conv block `p` is in device form (models/weights.py
 # params_from_jax): {"w": OIHW, "b": (Cout,) f32} or, for a 1x1 conv,
-# {"w_mm": (Cin, Cout), "b": (Cout,) f32}.
+# {"w_mm": (Cin, Cout), "b": (Cout,) f32}; placed (place_params), w_mm is
+# laid out K-major for the tensor-core 1x1 kernel.
 # ---------------------------------------------------------------------------
 
 def _conv(p: Params, x: torch.Tensor, stride: int = 1, act: bool = True,

@@ -36,11 +36,14 @@ _SIGNATURES = {
     "zlt_error_string": ([ctypes.c_int], ctypes.c_char_p),
     "zlt_nms_suppress": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                           ctypes.c_float, _P], ctypes.c_int),
-    "zlt_conv1x1_bias_act": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    "zlt_conv1x1_bias_act": ([_P, _P, _P, _P] + [ctypes.c_int] * 6 + [_P],
                              ctypes.c_int),
-    "zlt_bias_silu": ([_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, _P], ctypes.c_int),
+    "zlt_conv1x1_wgmma": ([_P, _P, _P, _P] + [ctypes.c_int] * 8 + [_P],
+                          ctypes.c_int),
+    "zlt_tma_encode_us": ([_P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int], ctypes.c_double),
+    "zlt_bias_silu_wave_threads": ([ctypes.c_int], ctypes.c_int),
+    "zlt_bias_silu": ([_P, _P, _P] + [ctypes.c_int] * 5 + [_P], ctypes.c_int),
 }
 
 
