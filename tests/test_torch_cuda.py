@@ -1,20 +1,27 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
 at the serving step's own shapes (yolov8n, 416 px, batch 8) and at edge
 shapes it does not reach (ragged tiles, K below a block, C not a multiple
-of the vector width, misaligned buffers), on both routes of the 1x1 GEMM.
+of the vector width, misaligned buffers), on both routes of the 1x1 GEMM;
+the NMS kernel exactly, on its edge cases too. Also the engine on the card:
+dispatch returns before the device has run the step, and the step's full
+f32 switch holds under PyTorch's default TF32 settings.
 
 Needs an NVIDIA GPU and nvcc: marked `cuda` and skipped elsewhere. This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed: `python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`.
 """
 
+import time
+
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_nms_cases  # noqa: E402
 from test_torch_serving_shapes import SERVING_BIAS_SILU_B8, SERVING_CONV1X1_B8  # noqa: E402
-from zero_latency_yolo_tpu_torch.ops import act_cuda, conv1x1_cuda, nms_cuda  # noqa: E402
-from zero_latency_yolo_tpu_torch.ops.nms import _iou_matrix_center  # noqa: E402
+from zero_latency_yolo_tpu_torch.ops import (  # noqa: E402
+    _build, act_cuda, conv1x1_cuda, nms_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -32,22 +39,42 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("b,k", [(1, 1), (3, 37), (8, 256), (2, 1024)])
-def test_nms_kernel_exact(dev, b, k):
-    g = torch.Generator().manual_seed(k)
-    boxes = torch.rand(b, k, 4, generator=g) * 400
-    boxes[..., 2:] = boxes[..., 2:] / 2 + 10
-    classes = torch.randint(0, 3, (b, k), generator=g)
-    valid = torch.rand(b, k, generator=g) > 0.2
-    iou = _iou_matrix_center(boxes).to(dev)
-    same = (classes[:, :, None] == classes[:, None, :]).to(dev)
-    valid = valid.to(dev)
+def _check_nms(dev, boxes, classes, valid, thr=torch_nms_cases.THRESH):
+    """The kernel's keep mask equals the plain version's, bit for bit, in
+    one launch."""
+    boxes, classes, valid = (torch.from_numpy(a).to(dev)
+                             for a in (boxes, classes, valid))
     n0 = nms_cuda.launches
-    got = nms_cuda.greedy_nms_mask(iou, same, valid, 0.45)
+    got = nms_cuda.nms_keep(boxes, classes, valid, thr)
     torch.cuda.synchronize()
     assert nms_cuda.launches == n0 + 1
-    want = nms_cuda.greedy_nms_mask_plain(iou, same, valid, 0.45)
+    assert got.dtype == torch.bool and got.shape == valid.shape
+    want = nms_cuda.nms_keep_plain(boxes, classes, valid, thr)
     assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("b,k", [(1, 1), (3, 37), (8, 256), (2, 1024),
+                                 (128, 256)])
+def test_nms_kernel_exact(dev, b, k):
+    keep = _check_nms(dev, *torch_nms_cases.seeded(k + b, b, k))
+    assert 0 < int(keep.sum()) or k == 1
+
+
+@pytest.mark.parametrize("name", sorted(torch_nms_cases.edge_cases()))
+def test_nms_kernel_edge_cases(dev, name):
+    _check_nms(dev, *torch_nms_cases.edge_cases()[name])
+
+
+@pytest.mark.parametrize("thr", [0.0, 0.45, 0.7, 1.0])
+def test_nms_kernel_thresholds(dev, thr):
+    _check_nms(dev, *torch_nms_cases.seeded(7, 8, 256, valid_frac=0.9), thr=thr)
+
+
+def test_nms_plan_is_the_kernel_layout(dev):
+    lib = _build.kernels().lib
+    for k in range(1, nms_cuda.MAX_K + 1):
+        assert nms_cuda.plan_nms_keep(k).smem == lib.zlt_nms_keep_smem_bytes(k)
 
 
 @pytest.mark.parametrize("layout", ["row-major", "k-major"])
@@ -195,8 +222,83 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         act_cuda.bias_silu(y, torch.zeros(4, device=dev))
     with pytest.raises(ValueError, match="dtypes"):
         act_cuda.bias_silu(y.t().half(), torch.zeros(8, device=dev))
-    iou = torch.zeros(1, 2000, 2000, device=dev)
-    with pytest.raises(ValueError, match="outside 1..1024"):
-        nms_cuda.greedy_nms_mask(iou, iou > 0,
-                                 torch.ones(1, 2000, dtype=torch.bool,
-                                            device=dev), 0.5)
+    boxes = torch.zeros(1, 1025, 4, device=dev)
+    classes = torch.zeros(1, 1025, dtype=torch.int32, device=dev)
+    valid = torch.ones(1, 1025, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="K in 1..1024"):
+        nms_cuda.nms_keep(boxes, classes, valid, 0.5)
+    for thr in (-0.1, float("nan")):
+        with pytest.raises(ValueError, match="must be >= 0"):
+            nms_cuda.nms_keep(boxes[:, :4], classes[:, :4], valid[:, :4], thr)
+    with pytest.raises(ValueError, match="classes int32"):
+        nms_cuda.nms_keep(boxes[:, :4], classes[:, :4].long(), valid[:, :4],
+                          0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        nms_cuda.nms_keep(boxes[:, :8:2], classes[:, :4], valid[:, :4], 0.5)
+
+
+def _small_engine(dtype: str):
+    """yolov8p at 64 px with NumPy-initialised weights on the card."""
+    from zero_latency_yolo_tpu_torch.config import ServerConfig
+    from zero_latency_yolo_tpu_torch.models import yolov8 as ym
+    from zero_latency_yolo_tpu_torch.runtime.engine import InferenceEngine
+    cfg = ServerConfig.from_dict({
+        "model_path": "/nonexistent.npz", "confidence_threshold": 0.5,
+        "nms_threshold": 0.45,
+        "detection": {"model_width": 64, "model_height": 64},
+        "tpu": {"variant": "yolov8p", "num_classes": 4, "dtype": dtype,
+                "batch_buckets": [2], "frame_buckets": [[96, 128]],
+                "pre_nms_topk": 64}})
+    return InferenceEngine(cfg, params=ym.init_params(0, ym.get_spec(
+        "yolov8p", 4)), device="cuda")
+
+
+def test_dispatch_returns_before_the_device_is_done(dev):
+    """A spin of the GPU queued before dispatch is still running when
+    dispatch returns: dispatch waits neither for earlier steps nor for its
+    own uploads."""
+    from zero_latency_yolo_tpu_torch.runtime.engine import InferenceRequest
+    eng = _small_engine("bfloat16")
+    rng = np.random.default_rng(0)
+    reqs = [InferenceRequest(client_id=i + 1, frame_id=i, timestamp=i,
+                             width=128, height=96,
+                             data=rng.integers(0, 256, (96, 128, 3),
+                                               dtype=np.uint8))
+            for i in range(2)]
+    want = eng.complete(eng.dispatch(reqs))  # builds and warms everything
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9))  # about a second of the GPU's clock
+    t0 = time.perf_counter()
+    pending = eng.dispatch(reqs)
+    host_s = time.perf_counter() - t0
+    busy = not torch.cuda.current_stream().query()
+    got = eng.complete(pending)
+    assert busy, f"dispatch returned with the stream idle ({host_s:.3f} s)"
+    assert [len(r.detections) for r in got] == [len(r.detections) for r in want]
+
+
+def test_f32_step_precision_holds_under_default_tf32(dev, monkeypatch):
+    """With PyTorch's TF32 settings on (its cuDNN default), a conv inside
+    full_f32_precision() is an f32 conv: its error against float64 is f32
+    rounding; the same conv outside it may be TF32."""
+    from zero_latency_yolo_tpu_torch.runtime.engine import full_f32_precision
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    if hasattr(cudnn, "conv") and hasattr(cudnn.conv, "fp32_precision"):
+        monkeypatch.setattr(cudnn.conv, "fp32_precision", "tf32")
+        monkeypatch.setattr(matmul, "fp32_precision", "tf32")
+    else:
+        monkeypatch.setattr(cudnn, "allow_tf32", True)
+        monkeypatch.setattr(matmul, "allow_tf32", True)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 128, 52, 52, generator=g).to(dev)
+    w = torch.randn(128, 128, 3, 3, generator=g).to(dev)
+    ref = torch.nn.functional.conv2d(x.double(), w.double(), padding=1)
+
+    def rel_err(y):
+        return float((y.double() - ref).abs().max() / ref.abs().max())
+
+    with full_f32_precision():
+        strict = rel_err(torch.nn.functional.conv2d(x, w, padding=1))
+    loose = rel_err(torch.nn.functional.conv2d(x, w, padding=1))
+    print(f"conv rel err: full f32 {strict:.3g}, default TF32 {loose:.3g}")
+    assert strict < 1e-5

@@ -1,0 +1,96 @@
+"""The port's f32 serving step at 416 px against the JAX package's, through
+the committed fixture tests/torch_fixtures/jax_f32_step_416.npz: the port's
+plain f32 step (CPU) is held to it at the 1e-3 gate of
+tests/test_model_parity.py:54-63, with the comparison chip_smoke.py uses on
+the card (`fixture_gate`), and the fixture is held to the JAX step it
+records."""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
+from zero_latency_yolo_tpu_torch.config import ServerConfig  # noqa: E402
+from zero_latency_yolo_tpu_torch.runtime import engine as pt_engine  # noqa: E402
+
+_SCRIPT = Path(__file__).resolve().parent / "torch_fixtures" / "make_jax_fixture.py"
+_spec = importlib.util.spec_from_file_location("make_jax_fixture", _SCRIPT)
+make_jax_fixture = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(make_jax_fixture)
+
+
+def _fixture():
+    return np.load(chip_smoke.FIXTURE)
+
+
+def _port_config():
+    cfg = ServerConfig.load(str(chip_smoke.CONFIG), create_if_missing=False)
+    cfg.model_path = str(chip_smoke.ROOT / cfg.model_path)
+    return cfg
+
+
+def test_fixture_records_what_made_it():
+    fx = _fixture()
+    cfg = _port_config()
+    assert int(fx["task_seed"]) == make_jax_fixture.TASK_SEED
+    assert tuple(fx["game_seeds"]) == make_jax_fixture.GAME_SEEDS
+    assert tuple(fx["task_bucket"]) == make_jax_fixture.TASK_BUCKET
+    assert float(fx["confidence_threshold"]) == cfg.confidence_threshold
+    assert float(fx["nms_threshold"]) == cfg.nms_threshold
+    frames = chip_smoke.fixture_frames(fx)
+    for name, want in make_jax_fixture.frame_sets().items():
+        assert all(np.array_equal(a, b) for a, b in zip(frames[name], want))
+    fcfg = chip_smoke.fixture_config(cfg, fx)
+    assert fcfg.tpu.dtype == "float32" and cfg.tpu.dtype == "bfloat16"
+    assert [tuple(b) for b in fcfg.tpu.frame_buckets] == [
+        tuple(b) for b in make_jax_fixture.config_dict()["tpu"]["frame_buckets"]]
+
+
+@pytest.mark.parametrize("name", ["task", "game"])
+def test_plain_f32_step_matches_jax_fixture(name):
+    """The deployed yolov8n at 416 px in f32 through dispatch (plain kernel
+    versions on the CPU): counts and classes equal, boxes and scores within
+    1e-3 of the JAX step, frame by frame."""
+    fx = _fixture()
+    cfg = _port_config()
+    eng = pt_engine.InferenceEngine(chip_smoke.fixture_config(cfg, fx),
+                                    device="cpu")
+    assert not eng.simulation
+    frames = chip_smoke.fixture_frames(fx)[name]
+    out = eng.dispatch(chip_smoke.frame_requests(
+        pt_engine.InferenceRequest, frames)).out.numpy()
+    gate = chip_smoke.fixture_gate(out, fx[name], cfg.confidence_threshold,
+                                   cfg.nms_threshold)
+    assert sum(gate["counts_jax"]) > 0, "vacuous: no detections"
+    assert all(gate["strict"]), gate["notes"]
+
+
+def test_fixture_is_the_jax_f32_step():
+    """The JAX engine, run again, gives the committed packed outputs within
+    the same gate (not bit for bit: XLA's CPU code may differ between
+    machines)."""
+    fx = _fixture()
+    for name, packed in make_jax_fixture.jax_packed().items():
+        gate = chip_smoke.fixture_gate(packed, fx[name], 0.5, 0.45)
+        assert all(gate["strict"]), (name, gate["notes"])
+
+
+def test_fixture_gate_excuses_only_decisions_on_a_threshold():
+    """A detection that one run lacks passes only when its score or its
+    overlap sits within 1e-3 of a threshold; the gate prints it either way."""
+    want = _fixture()["game"].copy()
+    n = int(want[0, 0])
+    assert n >= 2
+    got = want.copy()
+    got[0, 0] = n - 1  # the port lost frame 0's last detection
+    margin = chip_smoke.fixture_gate(got, want, float(want[0, 1 + 4 * 32 + n - 1])
+                                     - 5e-4, 0.45)
+    assert margin["ok"][0] and not margin["strict"][0]
+    assert "excused, on a threshold" in margin["notes"][0]
+    far = chip_smoke.fixture_gate(got, want, 0.1, 0.45)
+    assert not far["ok"][0] and "not excused" in far["notes"][0]
+    assert all(far["ok"][1:]) and all(far["strict"][1:])

@@ -1,7 +1,9 @@
 """The host side of the port's kernels, which decides what runs on the card:
 the 1x1 GEMM's route and tile plan (ops/conv1x1_cuda.py), a NumPy model of
-the bias+SiLU kernel's thread -> vector mapping (ops/act_cuda.py), and the
-K-major weight layout that place_params gives the tensor-core kernel.
+the bias+SiLU kernel's thread -> vector mapping (ops/act_cuda.py), the
+K-major weight layout that place_params gives the tensor-core kernel, and
+the NMS kernel's plan with a NumPy model of its bit layout and scan
+(ops/nms_cuda.py, csrc/nms_sm90.cu).
 Shapes are recorded from the port's own forward at the deployed model
 (yolov8n, 4 classes, 416 px). CPU only."""
 
@@ -12,11 +14,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_nms_cases  # noqa: E402
 from test_torch_serving_shapes import SERVING_BIAS_SILU_B8, SERVING_CONV1X1_B8  # noqa: E402
 from zero_latency_yolo_tpu_torch.models import yolov8 as ym  # noqa: E402
 from zero_latency_yolo_tpu_torch.models.weights import (  # noqa: E402
     params_from_jax, place_params)
-from zero_latency_yolo_tpu_torch.ops import act_cuda, conv1x1_cuda  # noqa: E402
+from zero_latency_yolo_tpu_torch.ops import act_cuda, conv1x1_cuda, nms_cuda  # noqa: E402
 
 BATCHES = (1, 2, 4, 8)
 H100_SMS = 132
@@ -234,3 +237,153 @@ def test_place_params_makes_the_k_major_copy(dtype):
         assert w.shape == (cin, cout) and w.dtype == dtype
         assert w.stride() == (1, cin) and w.t().is_contiguous()
         assert torch.equal(w, src["w_mm"].to(dtype))
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 37, 84, 256, 513, 1000, 1024])
+def test_nms_plan_fits_one_block(k):
+    """Threads a multiple of 32 up to 1024, the mask's row stride 1 mod 32
+    (the scan's 32 lanes read 32 distinct banks), every word of a row held,
+    the layout within the 227 KB a block may have."""
+    plan = nms_cuda.plan_nms_keep(k)
+    assert 32 * plan.words >= k > 32 * (plan.words - 1)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+    assert plan.threads <= max(32, 32 * plan.words * k)
+    assert plan.stride % 32 == 1 and plan.stride >= 32 * plan.words
+    assert plan.smem <= SMEM_LIMIT
+    assert plan.smem == 4 * (plan.words * plan.stride + 6 * k + plan.words)
+
+
+def _max_nan(a, b):
+    return np.where(np.isnan(a) | (a > b), a, b)
+
+
+def _min_nan(a, b):
+    return np.where(np.isnan(a) | (a < b), a, b)
+
+
+def _clamp_min(v, lo):
+    return np.where(v < lo, np.float32(lo), v)
+
+
+def _nms_model(boxes, classes, valid, thr):
+    """NumPy model of csrc/nms_sm90.cu nms_keep_kernel, frame by frame, in
+    its own f32 arithmetic and bit layout: stage, the words (w, i) of the
+    mask that it computes (valid rows only, words holding some j > i), the
+    one-warp scan, word by word: the word's keep bits as the fixed point of
+    rounds of a warp-wide OR of the diagonal rows of the bits still set,
+    then the kept candidates' rows cleared from the later words. The mask
+    starts as "never written" (-1), and reading such a word fails.
+    Returns the (B, K) keep mask and the scan's rounds a frame."""
+    f = np.float32
+    b, k, _ = boxes.shape
+    plan = nms_cuda.plan_nms_keep(k)
+    thr = f(thr)
+    keep = np.zeros((b, k), bool)
+    steps = []
+    bit = np.arange(32)
+    for fr in range(b):
+        cx, cy, w, h = (boxes[fr, :, c] for c in range(4))
+        hw, hh = w / f(2), h / f(2)
+        x1, y1, x2, y2 = cx - hw, cy - hh, cx + hw, cy + hh
+        area = _clamp_min(w, 0) * _clamp_min(h, 0)
+        cls = classes[fr]
+        v = np.zeros(32 * plan.words, bool)
+        v[:k] = valid[fr]
+        vbits = [int((v[32 * wd:32 * wd + 32].astype(np.int64) << bit).sum())
+                 for wd in range(plan.words)]
+        mask = np.full((plan.words, plan.stride), -1, np.int64)
+        i = np.arange(k)
+        for wd in range(plan.words):
+            js = 32 * wd + bit
+            jc = np.minimum(js, k - 1)
+            rows = valid[fr] & (wd >= (i + 1) >> 5)
+            cand = (js < k)[None, :] & v[jc][None, :] & (js[None, :] > i[:, None])
+            same = cls[jc][None, :] == cls[:, None]
+            iw = _clamp_min(_min_nan(x2[:, None], x2[jc][None, :])
+                            - _max_nan(x1[:, None], x1[jc][None, :]), 0)
+            ih = _clamp_min(_min_nan(y2[:, None], y2[jc][None, :])
+                            - _max_nan(y1[:, None], y1[jc][None, :]), 0)
+            inter = iw * ih
+            hit = inter > 0  # only these pairs are divided
+            uni = _clamp_min((area[:, None] + area[jc][None, :]) - inter,
+                             f(1e-9))
+            iou = np.divide(inter, uni, out=np.zeros_like(inter), where=hit)
+            sup = cand & same & hit & (iou > thr)
+            mask[wd, :k] = np.where(rows, (sup.astype(np.int64) << bit).sum(1),
+                                    -1)
+        kept = vbits + [0] * (32 - plan.words)  # lane w: keep word w
+        n = 0
+
+        def read(w_, i_):
+            row = int(mask[w_, i_])
+            assert row >= 0, f"scan read mask word ({w_}, {i_}) never written"
+            return row
+
+        for wl in range(plan.words):
+            todo = kept[wl]
+            if not todo:
+                continue
+            lanes = [32 * wl + r for r in range(32)]
+            diag = [read(wl, i_) if todo >> r & 1 and r < 31 else 0
+                    for r, i_ in enumerate(lanes)]
+            word, last, rounds = todo, None, 0
+            while word != last:  # the warp-wide OR, round by round
+                last = word
+                sup = 0
+                for r in range(32):
+                    if word >> r & 1:
+                        sup |= diag[r]
+                word = todo & ~sup
+                rounds += 1
+            assert rounds <= bin(todo).count("1") + 1
+            n += rounds
+            kept[wl] = word
+            for lane in range(wl + 1, plan.words):
+                sup = 0
+                for r, i_ in enumerate(lanes):
+                    if word >> r & 1:
+                        sup |= read(lane, i_)
+                kept[lane] &= ~sup
+        assert not any(kept[plan.words:])
+        keep[fr] = [(kept[j >> 5] >> (j & 31)) & 1 for j in range(k)]
+        steps.append(n)
+    return keep, steps
+
+
+def _nms_cases():
+    cases = {f"seed{s}_k{k}": torch_nms_cases.seeded(s, 2, k)
+             for s in (0, 1, 2) for k in (1, 37, 84, 256)}
+    cases.update(torch_nms_cases.edge_cases())
+    return cases
+
+
+@pytest.mark.parametrize("name", sorted(_nms_cases()))
+def test_nms_model_matches_plain(name):
+    """The kernel's bit layout and word-by-word scan give the plain
+    version's keep mask bit for bit, in fewer serial rounds than valid
+    candidates once a frame has more than a word of them."""
+    boxes, classes, valid = _nms_cases()[name]
+    with np.errstate(invalid="ignore", over="ignore"):
+        got, rounds = _nms_model(boxes, classes, valid, torch_nms_cases.THRESH)
+    want = nms_cuda.nms_keep_plain(torch.from_numpy(boxes),
+                                   torch.from_numpy(classes),
+                                   torch.from_numpy(valid),
+                                   torch_nms_cases.THRESH).numpy()
+    np.testing.assert_array_equal(got, want)
+    for n, v in zip(rounds, valid.sum(axis=1)):
+        assert n <= v + (v + 31) // 32 and (n < v or v <= 32)
+    assert not (want & ~valid).any()
+
+
+def test_nms_cases_at_threshold_are_exact():
+    """The at-threshold pair's IoU is np.float32(0.45) exactly, so it is not
+    suppressed; moved a quarter pixel closer, it is."""
+    boxes, classes, valid = torch_nms_cases.edge_cases()["at_threshold"]
+    iou = nms_cuda._iou_matrix_center(torch.from_numpy(boxes))
+    assert iou[0, 0, 1].item() == float(np.float32(torch_nms_cases.THRESH))
+    assert iou[1, 0, 1].item() > float(np.float32(torch_nms_cases.THRESH))
+    keep = nms_cuda.nms_keep_plain(torch.from_numpy(boxes),
+                                   torch.from_numpy(classes),
+                                   torch.from_numpy(valid),
+                                   torch_nms_cases.THRESH)
+    assert keep.tolist() == [[True, True], [True, False]]

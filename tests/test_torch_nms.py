@@ -1,8 +1,9 @@
 """The PyTorch port's NMS module (ops/nms_cuda.py, ops/nms.py) against the
-JAX package: the suppression scan against the Pallas kernel in interpret
-mode, and the whole postprocess + pack against the JAX postprocess on the
-same decoded predictions. CPU only (the wrappers run their plain versions
-on CPU tensors)."""
+JAX package: the keep mask from boxes, and the suppression scan inside it,
+against the JAX IoU matrix and the Pallas kernel in interpret mode, and the
+whole postprocess + pack against the JAX postprocess on the same decoded
+predictions. CPU only (the wrappers run their plain versions on CPU
+tensors)."""
 
 import pytest
 
@@ -10,6 +11,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+import torch_nms_cases  # noqa: E402
 
 from zero_latency_yolo_tpu.ops import nms as jax_nms  # noqa: E402
 from zero_latency_yolo_tpu.ops.nms_pallas import greedy_nms_mask_pallas  # noqa: E402
@@ -20,7 +22,7 @@ WEIGHTS = np.array([1.0, 1.0, 1.2, 0.8], np.float32)
 
 
 def _scan_case(seed, k, b=2):
-    """The inputs of tests/test_nms_pallas.py:14-31."""
+    """The inputs of tests/test_nms_pallas.py:14-31, with the JAX IoU."""
     rng = np.random.default_rng(seed)
     boxes = rng.uniform(0, 416, (b, k, 4)).astype(np.float32)
     boxes[..., 2:] = rng.uniform(20, 200, (b, k, 2))
@@ -29,28 +31,51 @@ def _scan_case(seed, k, b=2):
     iou = np.stack([np.asarray(jax_nms._iou_matrix_center(jnp.asarray(x)))
                     for x in boxes])
     same = classes[:, :, None] == classes[:, None, :]
-    return boxes, iou, same, valid
+    return boxes, classes.astype(np.int32), iou, same, valid
+
+
+def _pallas_keep(iou, same, valid):
+    return np.asarray(greedy_nms_mask_pallas(
+        jnp.asarray(iou), jnp.asarray(same), jnp.asarray(valid), 0.45,
+        interpret=True))
 
 
 @pytest.mark.parametrize("seed,k", [(0, 64), (1, 128), (2, 256)])
 def test_scan_matches_pallas_kernel(seed, k):
-    """Exact: the keep masks are equal."""
-    _, iou, same, valid = _scan_case(seed, k)
-    want = np.asarray(greedy_nms_mask_pallas(
-        jnp.asarray(iou), jnp.asarray(same), jnp.asarray(valid), 0.45,
-        interpret=True))
+    """Exact: the keep masks are equal, for the scan on the JAX IoU and for
+    the wrapper from the boxes (which takes the plain version for CPU
+    tensors)."""
+    boxes, classes, iou, same, valid = _scan_case(seed, k)
+    want = _pallas_keep(iou, same, valid)
     args = (torch.from_numpy(iou), torch.from_numpy(same),
             torch.from_numpy(valid), 0.45)
     np.testing.assert_array_equal(
         nms_cuda.greedy_nms_mask_plain(*args).numpy(), want)
-    # The wrapper takes the plain version for CPU tensors.
-    np.testing.assert_array_equal(nms_cuda.greedy_nms_mask(*args).numpy(), want)
+    np.testing.assert_array_equal(nms_cuda.nms_keep(
+        torch.from_numpy(boxes), torch.from_numpy(classes),
+        torch.from_numpy(valid), 0.45).numpy(), want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("k", [1, 37, 84, 256])
+def test_nms_keep_plain_matches_jax(seed, k):
+    """nms_keep_plain from boxes, classes and valid flags against the JAX
+    IoU matrix, same-class mask and Pallas scan (interpret mode): exact."""
+    boxes, classes, valid = torch_nms_cases.seeded(100 + seed, 2, k)
+    iou = np.stack([np.asarray(jax_nms._iou_matrix_center(jnp.asarray(x)))
+                    for x in boxes])
+    want = _pallas_keep(iou, classes[:, :, None] == classes[:, None, :], valid)
+    got = nms_cuda.nms_keep_plain(torch.from_numpy(boxes),
+                                  torch.from_numpy(classes),
+                                  torch.from_numpy(valid), 0.45).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert want.sum() > 0 or not valid.any()
 
 
 @pytest.mark.parametrize("seed,k", [(3, 64), (4, 256)])
 def test_iou_matrix_matches_jax(seed, k):
     """Same f32 formula, same order of operations: 1 ulp at most."""
-    boxes, want, _, _ = _scan_case(seed, k)
+    boxes, _, want, _, _ = _scan_case(seed, k)
     got = pt_nms._iou_matrix_center(torch.from_numpy(boxes)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
 
@@ -127,7 +152,9 @@ def test_postprocess_matches_numpy_oracle():
 
 def test_scan_refuses_other_devices():
     """A tensor neither on CPU nor on CUDA is refused, not computed."""
-    iou = torch.zeros(1, 4, 4, device="meta")
+    boxes = torch.zeros(1, 4, 4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        nms_cuda.greedy_nms_mask(iou, iou > 0, torch.zeros(1, 4, dtype=torch.bool,
-                                                           device="meta"), 0.5)
+        nms_cuda.nms_keep(boxes, torch.zeros(1, 4, dtype=torch.int32,
+                                             device="meta"),
+                          torch.zeros(1, 4, dtype=torch.bool, device="meta"),
+                          0.5)

@@ -219,3 +219,94 @@ def test_real_weights_forward_160_matches_jax():
                                    torch.from_numpy(x)).numpy()
     _assert_decoded_close(got, want, size)
     assert (want[..., 4:] > 0.5).any(), "vacuous: the model fires nowhere"
+
+
+def _tf32_knobs():
+    """(object, name, value on, value off) of cuDNN conv TF32 and matmul
+    TF32: the per-op precision settings where PyTorch has them (2.9 and
+    later), else the allow_tf32 flags."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    if hasattr(cudnn, "conv") and hasattr(cudnn.conv, "fp32_precision"):
+        return [(cudnn.conv, "fp32_precision", "tf32", "ieee"),
+                (matmul, "fp32_precision", "tf32", "ieee")]
+    return [(cudnn, "allow_tf32", True, False),
+            (matmul, "allow_tf32", True, False)]
+
+
+def _tf32_on():
+    return tuple(getattr(obj, name) == on for obj, name, on, _ in _tf32_knobs())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_engine_step_precision_is_its_own(dtype, monkeypatch):
+    """With the caller's TF32 on, an f32 step runs every conv and batched
+    matmul with cuDNN and matmul TF32 off, and gives the caller's settings
+    back; a bf16 step leaves them as they are."""
+    eng = pt_engine.InferenceEngine(
+        ServerConfig.from_dict(_engine_cfg({"dtype": dtype})),
+        params=_spread_params(2), device="cpu")
+    seen = []
+
+    def recording(fn):
+        def run(*args, **kwargs):
+            seen.append(_tf32_on())
+            return fn(*args, **kwargs)
+        return run
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d",
+                        recording(torch.nn.functional.conv2d))
+    monkeypatch.setattr(torch, "bmm", recording(torch.bmm))
+    for obj, name, on, _ in _tf32_knobs():  # the caller's: TF32 on
+        monkeypatch.setattr(obj, name, on)
+    eng.infer_batch(_requests(pt_engine.InferenceRequest, 2))
+    after = _tf32_on()
+    assert len(seen) > 2  # the letterbox's two products and the k=3 convs
+    inside = (False, False) if dtype == "float32" else (True, True)
+    assert set(seen) == {inside}
+    assert after == (True, True)
+
+
+def test_engine_dispatch_copies_only_pinned_staging_non_blocking(monkeypatch):
+    """dispatch copies to the device only its two staging buffers (frames,
+    and heights and widths packed (2, B)), each with non_blocking=True, so
+    from pinned memory it does not wait for the device; the pair returns to
+    the free-list only when its batch is read back."""
+    eng = pt_engine.InferenceEngine(ServerConfig.from_dict(_engine_cfg()),
+                                    params=_spread_params(2), device="cpu")
+    reqs = _requests(pt_engine.InferenceRequest, 6)
+    calls, recording = [], [True]
+    to, step = torch.Tensor.to, eng._step
+
+    def rec_to(self, *args, **kwargs):
+        if recording[0]:
+            calls.append((self, args, kwargs))
+        return to(self, *args, **kwargs)
+
+    def quiet_step(*args):  # the step's own dtype casts are not copies
+        recording[0] = False
+        try:
+            return step(*args)
+        finally:
+            recording[0] = True
+
+    monkeypatch.setattr(eng, "_step", quiet_step)
+    monkeypatch.setattr(torch.Tensor, "to", rec_to)
+    first = eng.dispatch(reqs[:4])
+    second = eng.dispatch(reqs[4:])
+    monkeypatch.undo()
+    assert len(calls) == 4
+    for src, args, kwargs in calls:
+        assert kwargs.get("non_blocking") is True, (tuple(src.shape), kwargs)
+    frames, shw = first.staging_buf
+    assert shw.dtype == torch.int32 and shw.shape == (2, 4)
+    assert shw[:, 0].tolist() == [reqs[0].height, reqs[0].width]
+    bufs = {t.data_ptr() for p in (first, second) for t in p.staging_buf}
+    assert {src.data_ptr() for src, _, _ in calls} == bufs
+    assert second.staging_buf[0].data_ptr() != frames.data_ptr()
+    got = eng.complete_many([first, second])
+    assert [len(r) for r in got] == [4, 2]
+    # Recycled after the readback: the next batch of 4 reuses the pair.
+    again = eng.dispatch(reqs[:4])
+    assert again.staging_buf[0] is frames and again.staging_buf[1] is shw
+    assert [(r.frame_id, len(r.detections)) for r in eng.complete(again)] == [
+        (r.frame_id, len(r.detections)) for r in got[0]]

@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Write the JAX engine's f32 serving step at 416 px as a fixture for the
+PyTorch port: `jax_f32_step_416.npz` beside this file.
+
+    JAX_PLATFORMS=cpu python tests/torch_fixtures/make_jax_fixture.py
+
+Runs the JAX package's `InferenceEngine` on the CPU in f32, through the
+configured `letterbox_mxu` preprocess, with `artifacts/yolov8n_trained_416.npz`
+and the thresholds of `configs/examples/server-cs16-416.json`, on two
+batches of 8 frames made by `chip_smoke.py` (one definition of the frames):
+
+- "task": `task_frames(8, 416, seed=777)`, frames of the weights' own task,
+  in a 416x416 frame bucket (identity letterbox);
+- "game": `synthetic_frame(800, 600, seed=s, t=0.3 * s)` for s in 4..11, in
+  the deployed 608x800 bucket (a scaled, padded letterbox).
+
+The file holds each batch's packed (8, 1 + 6*32) f32 output (`nms.pack_outputs`
+layout), the frame seeds and the thresholds. The port's f32 step is held to
+it at the 1e-3 gate of tests/test_model_parity.py:54-63: on the CPU by
+tests/test_torch_fixture.py, on the card by chip_smoke.py (NumPy only there).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+from pathlib import Path
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import numpy as np  # noqa: E402
+
+HERE = Path(__file__).resolve().parent
+REPO = HERE.parent.parent
+sys.path.insert(0, str(REPO))
+
+OUT = HERE / "jax_f32_step_416.npz"
+CONFIG = REPO / "configs" / "examples" / "server-cs16-416.json"
+TASK_SEED = 777
+GAME_SEEDS = tuple(range(4, 12))
+# The deployed frame buckets with a 416x416 bucket in front, so that the
+# task frames take an identity letterbox.
+TASK_BUCKET = (416, 416)
+
+
+def frame_sets():
+    """{name: list of (h, w, 3) uint8 frames} for the two batches."""
+    from chip_smoke import synthetic_frame, task_frames
+    return {"task": list(task_frames(8, 416, seed=TASK_SEED)),
+            "game": [synthetic_frame(800, 600, seed=s, t=0.3 * s)
+                     for s in GAME_SEEDS]}
+
+
+def config_dict() -> dict:
+    """The deployed config in f32, with the 416x416 bucket added."""
+    cfg = json.loads(CONFIG.read_text())
+    cfg["model_path"] = str(REPO / cfg["model_path"])
+    cfg["tpu"]["dtype"] = "float32"
+    cfg["tpu"]["frame_buckets"] = ([list(TASK_BUCKET)]
+                                   + cfg["tpu"]["frame_buckets"])
+    return cfg
+
+
+def jax_packed() -> dict:
+    """{name: packed (8, 193) f32} of the JAX engine's f32 step."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from zero_latency_yolo_tpu.config import ServerConfig
+    from zero_latency_yolo_tpu.runtime.engine import (InferenceEngine,
+                                                      InferenceRequest)
+    cfg = ServerConfig.from_dict(config_dict())
+    assert cfg.tpu.preprocess == "letterbox_mxu", cfg.tpu.preprocess
+    engine = InferenceEngine(cfg)
+    assert not engine.simulation, f"{cfg.model_path} did not load"
+    packed = {}
+    for name, frames in frame_sets().items():
+        reqs = [InferenceRequest(client_id=i + 1, frame_id=i, timestamp=i,
+                                 width=f.shape[1], height=f.shape[0], data=f)
+                for i, f in enumerate(frames)]
+        out = np.asarray(engine.dispatch(reqs).out, np.float32)
+        assert out.shape == (8, 1 + 6 * 32), out.shape
+        packed[name] = out
+    return packed
+
+
+def main() -> None:
+    packed = jax_packed()
+    for name, out in packed.items():
+        print(f"{name}: counts {out[:, 0].astype(int).tolist()}", flush=True)
+    cfg = config_dict()
+    np.savez_compressed(
+        OUT, task=packed["task"], game=packed["game"],
+        task_seed=np.int64(TASK_SEED), game_seeds=np.array(GAME_SEEDS),
+        confidence_threshold=np.float64(cfg["confidence_threshold"]),
+        nms_threshold=np.float64(cfg["nms_threshold"]),
+        task_bucket=np.array(TASK_BUCKET))
+    print(f"wrote {OUT.relative_to(REPO)} ({OUT.stat().st_size} bytes)")
+
+
+if __name__ == "__main__":
+    main()

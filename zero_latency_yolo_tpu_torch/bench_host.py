@@ -7,12 +7,13 @@ more per call can slow the step even where device time falls.
     python3 zero_latency_yolo_tpu_torch/bench_host.py [--root DIR] [--label L]
 
 `--root` imports `zero_latency_yolo_tpu_torch` (and reads the deployed
-config and weights) from DIR instead of this checkout, so two commits can
-be compared on one card: unpack the other with `git archive` and run the
-two in turns, each in its own process. The script uses only what every
-version of the port has had: `InferenceEngine` with `get_step` and its
-placed parameters, and the wrappers `conv1x1_bias_act(x, w, b, act)` and
-`bias_silu(y, b)`.
+config and weights, and `chip_smoke.py`'s frames) from DIR instead of this
+checkout, so two commits can be compared on one card: unpack the other
+with `git archive` and run the two in turns, each in its own process. The
+script uses only what every version of the port has had: `InferenceEngine`
+with `get_step` and its placed parameters, the wrappers
+`conv1x1_bias_act(x, w, b, act)` and `bias_silu(y, b)`, `ops/nms.py`
+`_nms_and_compact` and `_compact_one`, and `chip_smoke.synthetic_frame`.
 
 Prints one JSON line:
 - `wrapper_us`: host microseconds a call takes to return, mean over
@@ -26,7 +27,13 @@ Prints one JSON line:
   compare between runs, which a busier host moves less;
 - `step`: per batch bucket (608x800 frames), the median and mean over
   `--steps` steps of the host time until the step returns (`host_ms`) and
-  of the time until the device has finished it (`wall_ms`).
+  of the time until the device has finished it (`wall_ms`);
+- `profile_b8`: the batch-8 step on the game frames of `chip_smoke.py`
+  (`synthetic_frame(800, 600, seed=s)`, s = 0..7) under torch.profiler
+  (`step_profile`): CUDA kernels launched a step, device busy time, and
+  the device time and kernel count of the NMS stage (everything
+  `ops/nms.py` `_nms_and_compact` launches before `_compact_one`: in every
+  version of the port, the IoU, same-class and suppression work).
 """
 
 from __future__ import annotations
@@ -41,6 +48,87 @@ from pathlib import Path
 import numpy as np
 
 BUCKET = (608, 800)
+STAGE, COMPACT = "zlt_nms_and_compact", "zlt_compact"
+
+
+def step_profile(torch, fn, iters: int = 5) -> dict:
+    """Device time of fn(), one serving step, by kernel (torch.profiler, CUDA
+    activity), per step over `iters` steps: `wall_ms`, `busy_ms` (kernels
+    and copies), `kernels` (kernel launches, copies and memsets not
+    counted), `nms_stage_ms` and `nms_stage_kernels`, and `rows`, one
+    (device ms, launches, name) per kernel name, the largest first.
+
+    The NMS stage is read from the profiler's tree of host ranges: for the
+    duration of the profile, `_nms_and_compact` and `_compact_one` of the
+    port's `ops/nms.py` run inside named ranges, and the stage is every
+    kernel launched inside the first before the second begins."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from zero_latency_yolo_tpu_torch.ops import nms as nms_ops
+
+    def ranged(name, f):
+        def run(*args, **kwargs):
+            with record_function(name):
+                return f(*args, **kwargs)
+        return run
+
+    fn()
+    torch.cuda.synchronize()
+    saved = nms_ops._nms_and_compact, nms_ops._compact_one
+    nms_ops._nms_and_compact = ranged(STAGE, saved[0])
+    nms_ops._compact_one = ranged(COMPACT, saved[1])
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / iters
+    finally:
+        nms_ops._nms_and_compact, nms_ops._compact_one = saved
+    # The ranges also show on the device's timeline; they are not kernels.
+    rows = sorted(((e.self_device_time_total / 1e3 / iters, e.count // iters,
+                    e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.key not in (STAGE, COMPACT)), reverse=True)
+
+    # Each kernel on the device timeline carries the correlation id of the
+    # runtime call that launched it (cudaLaunchKernel and kin), which sits
+    # in the host's tree of ranges under the op, or the range, it ran in.
+    events = prof.events()
+    device = {}
+    for e in events:
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and not e.name.startswith(("Memcpy", "Memset"))):
+            device.setdefault(e.id, []).append(e)
+
+    def launched(ev):
+        found = device.get(ev.id, []) if "Launch" in ev.name else []
+        return found + [k for c in ev.cpu_children for k in launched(c)]
+
+    stage_us, stage_kernels, stages = 0.0, 0, 0
+    for ev in events:
+        if ev.name != STAGE or ev.device_type != DeviceType.CPU:
+            continue
+        compact = [c for c in ev.cpu_children if c.name == COMPACT]
+        if len(compact) != 1:
+            raise RuntimeError(f"step_profile: {len(compact)} {COMPACT} "
+                               f"ranges in one {STAGE}")
+        ks = [k for c in ev.cpu_children
+              if c.time_range.start < compact[0].time_range.start
+              for k in launched(c)]
+        stage_us += sum(k.time_range.end - k.time_range.start for k in ks)
+        stage_kernels += len(ks)
+        stages += 1
+    if stages != iters:
+        raise RuntimeError(f"step_profile: {stages} NMS stages in {iters} steps")
+    return {"wall_ms": wall, "busy_ms": sum(r[0] for r in rows),
+            "kernels": sum(n for _, n, key in rows
+                           if not key.startswith(("Memcpy", "Memset"))),
+            "nms_stage_ms": stage_us / 1e3 / iters,
+            "nms_stage_kernels": stage_kernels / iters, "rows": rows}
 
 
 def host_us(torch, fn, reps: int) -> float:
@@ -119,7 +207,7 @@ def main() -> None:
                                 host_us(torch, lambda: F.silu(yc + bc),
                                         args.reps)))
 
-        step = {}
+        step, profile_b8 = {}, None
         rng = np.random.default_rng(0)
         for b in engine.batch_buckets:
             frames = torch.from_numpy(rng.integers(
@@ -145,6 +233,17 @@ def main() -> None:
                        "host_ms_mean": statistics.fmean(host),
                        "wall_ms_median": statistics.median(wall),
                        "wall_ms_mean": statistics.fmean(wall)}
+            if b == 8:
+                from chip_smoke import synthetic_frame
+                game = np.zeros((8,) + BUCKET + (3,), np.uint8)
+                game[:, :600, :800] = [synthetic_frame(800, 600, seed=s)
+                                       for s in range(8)]
+                hs = torch.full((8,), 600, dtype=torch.int32, device=dev)
+                ws = torch.full((8,), 800, dtype=torch.int32, device=dev)
+                game_args = (engine._params, torch.from_numpy(game).to(dev),
+                             hs, ws) + run_args[4:]
+                profile_b8 = step_profile(torch, lambda: fn(*game_args))
+                profile_b8["rows"] = profile_b8["rows"][:20]
 
     print(json.dumps({
         "label": args.label, "root": str(root),
@@ -154,7 +253,7 @@ def main() -> None:
             "control_us": statistics.fmean(c for _, c in t),
             "per_control": statistics.fmean(u / c for u, c in t),
             "blocks": len(t)} for name, t in timed.items()},
-        "step": step}), flush=True)
+        "step": step, "profile_b8": profile_b8}), flush=True)
 
 
 if __name__ == "__main__":

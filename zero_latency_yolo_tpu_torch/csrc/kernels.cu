@@ -1,13 +1,11 @@
 // Hand-written Hopper (sm_90a) kernels of the PyTorch port's serving step.
 //
 // A plain C interface, compiled together with conv1x1_sm90.cu (the
-// tensor-core 1x1 GEMM) by one nvcc call into one shared library and bound
-// with ctypes (ops/_build.py). No PyTorch header is
-// included. Every entry point launches on the stream it is given, does not
-// synchronise, allocates nothing, and returns cudaGetLastError().
+// tensor-core 1x1 GEMM) and nms_sm90.cu (greedy NMS) by one nvcc call into
+// one shared library and bound with ctypes (ops/_build.py). No PyTorch
+// header is included. Every entry point launches on the stream it is given,
+// does not synchronise, allocates nothing, and returns cudaGetLastError().
 //
-//   zlt_nms_suppress      greedy same-class NMS suppression scan
-//                         (replaces ops/nms_pallas.py _suppress_kernel)
 //   zlt_conv1x1_bias_act  1x1 conv as a GEMM with a bias(+SiLU) epilogue on
 //                         the CUDA cores: f32, and bf16 shapes the
 //                         tensor-core kernel of conv1x1_sm90.cu does not take
@@ -40,34 +38,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 __device__ __forceinline__ float silu(float z) { return z / (1.0f + expf(-z)); }
 
 // ---------------------------------------------------------------------------
-// 1. NMS suppression scan. One block per frame, one thread per candidate
-// column j, keep mask in shared memory. Row i is read only while i is alive,
-// and column j only while j is alive; the iou element only where the classes
-// match. The K-step loop with one barrier per step is the serial dependence
-// of greedy NMS itself.
-// ---------------------------------------------------------------------------
-__global__ void nms_suppress_kernel(const float* __restrict__ iou,
-                                    const int8_t* __restrict__ same,
-                                    const int32_t* __restrict__ valid,
-                                    int32_t* __restrict__ keep, int k,
-                                    float thr) {
-  extern __shared__ int32_t alive[];
-  const int j = threadIdx.x;
-  const size_t frame = blockIdx.x;
-  const size_t base = frame * k * k;
-  alive[j] = valid[frame * k + j] != 0;
-  for (int i = 0; i < k; ++i) {
-    __syncthreads();  // step i-1's clears are visible before alive[i] is read
-    if (j > i && alive[i] && alive[j]) {
-      const size_t off = base + static_cast<size_t>(i) * k + j;
-      if (same[off] != 0 && iou[off] > thr) alive[j] = 0;
-    }
-  }
-  keep[frame * k + j] = alive[j];  // alive[j] is written by thread j only
-}
-
-// ---------------------------------------------------------------------------
-// 2. 1x1 conv GEMM: out[m, n] = act(sum_k x[m, k] w[k, n] + b[n]), with w
+// 1. 1x1 conv GEMM: out[m, n] = act(sum_k x[m, k] w[k, n] + b[n]), with w
 // row-major (w[k * n + n']) or, for KMajor, K-major (w[n' * kdim + k]) as
 // place_params lays it out. The layout is a template flag, not strides read
 // at run time, so that each instance's address arithmetic stays what it
@@ -145,7 +116,7 @@ mm_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// 3. Bias + SiLU over a flat NHWC buffer of n elements with c channels.
+// 2. Bias + SiLU over a flat NHWC buffer of n elements with c channels.
 // Bound by bytes: one read and one write per element against a handful of
 // f32 operations. At the HBM rate an SM must finish about 0.4 16-byte
 // vectors a cycle, so the instructions spent on each vector may set the
@@ -262,18 +233,6 @@ extern "C" {
 
 const char* zlt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-int zlt_nms_suppress(const void* iou, const void* same, const void* valid,
-                     void* keep, int b, int k, float thr, void* stream) {
-  if (b < 0 || k < 1 || k > 1024) return cudaErrorInvalidValue;
-  if (b > 0) {
-    nms_suppress_kernel<<<b, k, k * sizeof(int32_t),
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(iou), static_cast<const int8_t*>(same),
-        static_cast<const int32_t*>(valid), static_cast<int32_t*>(keep), k, thr);
-  }
-  return cudaGetLastError();
 }
 
 // w (kdim, n) row-major, or K-major where w_kmajor is 1.

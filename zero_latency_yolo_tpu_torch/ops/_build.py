@@ -34,8 +34,10 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     # name: (argtypes, restype)
     "zlt_error_string": ([ctypes.c_int], ctypes.c_char_p),
-    "zlt_nms_suppress": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_float, _P], ctypes.c_int),
+    "zlt_nms_keep_smem_bytes": ([ctypes.c_int], ctypes.c_int),
+    "zlt_nms_keep": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
+                     ctypes.c_int),
     "zlt_conv1x1_bias_act": ([_P, _P, _P, _P] + [ctypes.c_int] * 6 + [_P],
                              ctypes.c_int),
     "zlt_conv1x1_wgmma": ([_P, _P, _P, _P] + [ctypes.c_int] * 8 + [_P],

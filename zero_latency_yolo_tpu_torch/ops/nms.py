@@ -7,7 +7,8 @@ semantics (reference src/inference/onnx_engine.cpp:758-878):
 - per-anchor argmax class after `class_weights` multiply the scores,
   threshold at conf, top-K candidates by weighted score;
 - greedy same-class suppression at IoU > nms_threshold on center-format
-  boxes (the suppression scan is the CUDA kernel of `ops/nms_cuda.py`);
+  boxes (`ops/nms_cuda.py` `nms_keep`: one CUDA kernel from boxes to the
+  keep mask);
 - compaction to MAX_DET, boxes un-letterboxed to source pixels and
   normalized, scores clipped to [0, 1];
 - one packed (B, 1 + 6*MAX_DET) f32 array per batch, so one D2H copy.
@@ -24,27 +25,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .nms_cuda import greedy_nms_mask, greedy_nms_mask_plain
+from .nms_cuda import _iou_matrix_center, nms_keep, nms_keep_plain  # noqa: F401
 
 MAX_DET = 32       # reference MAX_DETECTION_COUNT (src/common/constants.h:18)
 PRE_NMS_TOPK = 256
-
-
-def _iou_matrix_center(boxes: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU of (..., K, 4) center-format boxes -> (..., K, K)."""
-    cx, cy, w, h = boxes[..., 0], boxes[..., 1], boxes[..., 2], boxes[..., 3]
-    x1, y1 = cx - w / 2, cy - h / 2
-    x2, y2 = cx + w / 2, cy + h / 2
-    area = torch.clamp(w, min=0) * torch.clamp(h, min=0)
-    ix1 = torch.maximum(x1[..., :, None], x1[..., None, :])
-    iy1 = torch.maximum(y1[..., :, None], y1[..., None, :])
-    ix2 = torch.minimum(x2[..., :, None], x2[..., None, :])
-    iy2 = torch.minimum(y2[..., :, None], y2[..., None, :])
-    iw = torch.clamp(ix2 - ix1, min=0)
-    ih = torch.clamp(iy2 - iy1, min=0)
-    inter = iw * ih
-    union = area[..., :, None] + area[..., None, :] - inter
-    return inter / torch.clamp(union, min=1e-9)
 
 
 def _rank_candidates(boxes: torch.Tensor, probs: torch.Tensor,
@@ -113,11 +97,9 @@ def _compact_one(top_boxes, top_scores, top_class, keep, scale, pad, src_wh
 def _nms_and_compact(top_boxes, top_scores, top_class, top_valid, iou_thresh,
                      scale, pad, src_wh, plain: bool = False
                      ) -> Dict[str, torch.Tensor]:
-    """Stages 2+3: pairwise IoU, greedy suppression, compact + un-letterbox."""
-    iou = _iou_matrix_center(top_boxes)
-    same_class = top_class[:, :, None] == top_class[:, None, :]
-    scan = greedy_nms_mask_plain if plain else greedy_nms_mask
-    keep = scan(iou, same_class, top_valid, iou_thresh)
+    """Stages 2+3: greedy same-class suppression, compact + un-letterbox."""
+    keep = (nms_keep_plain if plain else nms_keep)(top_boxes, top_class,
+                                                   top_valid, iou_thresh)
     out = _compact_one(top_boxes, top_scores, top_class, keep, scale, pad,
                        src_wh)
     # Class weights (> 1) boost scores for ranking/threshold, but the score
@@ -138,7 +120,7 @@ def postprocess_batch(pred: torch.Tensor, class_weights: torch.Tensor,
     conf_thresh / iou_thresh: host floats (runtime values)
     scale:   (B,) letterbox scale; pad: (B, 2) = (pad_x, pad_y)
     src_wh:  (B, 2) source frame (w, h) as float
-    plain:   run the suppression scan's plain version (reference runs)
+    plain:   run the NMS kernel's plain version (reference runs)
     """
     topk = min(topk, pred.shape[1])
     top_boxes, top_scores, top_class, top_valid = _select_one(

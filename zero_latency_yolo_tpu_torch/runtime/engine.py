@@ -24,6 +24,7 @@ effect here.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import random
 import time
@@ -66,10 +67,11 @@ class PendingBatch:
     t0: float
     n: int
     simulated: Optional[List["EngineResult"]] = None
-    # Pinned host staging buffer: held until the batch's results are read
-    # back (which proves its H2D copy finished), then recycled.
+    # Pinned host staging buffers (frames, packed heights and widths): held
+    # until the batch's results are read back (which proves their H2D copies
+    # finished), then recycled.
     staging_key: Optional[Tuple[int, int, int]] = None
-    staging_buf: Optional[torch.Tensor] = None
+    staging_buf: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 @dataclass
@@ -100,6 +102,30 @@ def _pick_batch(buckets: Sequence[int], n: int) -> int:
         if n <= b:
             return b
     return max(buckets)
+
+
+@contextlib.contextmanager
+def full_f32_precision():
+    """Run cuDNN convs and matmuls in full f32, not TF32 (cuDNN's f32 convs
+    are TF32 by default), and restore the caller's settings on exit. Uses the
+    per-op precision settings where PyTorch has them (2.9 and later), which
+    the older `allow_tf32` flags map onto there, else those flags. The
+    settings are process-wide: another thread's convs in the meantime also
+    run in full f32."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    if hasattr(cudnn, "conv") and hasattr(cudnn.conv, "fp32_precision"):
+        knobs = [(cudnn.conv, "fp32_precision", "ieee"),
+                 (matmul, "fp32_precision", "ieee")]
+    else:
+        knobs = [(cudnn, "allow_tf32", False), (matmul, "allow_tf32", False)]
+    saved = [getattr(obj, name) for obj, name, _ in knobs]
+    try:
+        for obj, name, off in knobs:
+            setattr(obj, name, off)
+        yield
+    finally:
+        for (obj, name, _), value in zip(knobs, saved):
+            setattr(obj, name, value)
 
 
 def _check_supported(config: ServerConfig) -> None:
@@ -166,8 +192,9 @@ class InferenceEngine:
             device=None if self.simulation else self.device)
 
         self._step = self._build_step()
-        # Per-shape free-lists of host staging buffers (see dispatch).
-        self._staging: Dict[Tuple[int, int, int], List[torch.Tensor]] = {}
+        # Per-shape free-lists of host staging buffer pairs (see dispatch).
+        self._staging: Dict[Tuple[int, int, int],
+                            List[Tuple[torch.Tensor, torch.Tensor]]] = {}
 
         # Telemetry (reference stats fields, onnx_engine.h:261-273).
         self.inference_count = Counter()
@@ -184,22 +211,28 @@ class InferenceEngine:
         step(params, frames, heights, widths, class_w, conf, iou) -> packed
         (B, 1 + 6*MAX_DET) f32. `plain=True` runs every kernel's plain
         PyTorch version instead (the reference a run checks the kernels
-        against)."""
+        against). An f32 step runs its convs and matmuls in full f32
+        whatever the caller's TF32 settings (`full_f32_precision`)."""
         size, spec = self.model_size, self.spec
         dtype, topk = self.dtype, self.pre_nms_topk
+        precision = (full_f32_precision if dtype == torch.float32
+                     else contextlib.nullcontext)
 
         @torch.inference_mode()
         def step(params, frames, heights, widths, class_w, conf, iou):
-            x = letterbox_batch_mxu(frames, heights, widths, size, dtype)
-            hf = heights.to(torch.float32)
-            wf = widths.to(torch.float32)
-            scale, pad_x, pad_y = letterbox_params(hf, wf, size)
-            pad = torch.stack([pad_x, pad_y], dim=-1)
-            src_wh = torch.stack([wf, hf], dim=-1)
-            pred = forward_decoded(params, spec, x, dtype=dtype, plain=plain)
-            out = nms_ops.postprocess_batch(pred, class_w, conf, iou, scale,
-                                            pad, src_wh, topk, plain=plain)
-            return nms_ops.pack_outputs(out)
+            with precision():
+                x = letterbox_batch_mxu(frames, heights, widths, size, dtype)
+                hf = heights.to(torch.float32)
+                wf = widths.to(torch.float32)
+                scale, pad_x, pad_y = letterbox_params(hf, wf, size)
+                pad = torch.stack([pad_x, pad_y], dim=-1)
+                src_wh = torch.stack([wf, hf], dim=-1)
+                pred = forward_decoded(params, spec, x, dtype=dtype,
+                                       plain=plain)
+                out = nms_ops.postprocess_batch(pred, class_w, conf, iou,
+                                                scale, pad, src_wh, topk,
+                                                plain=plain)
+                return nms_ops.pack_outputs(out)
 
         return step
 
@@ -296,28 +329,30 @@ class InferenceEngine:
             requests = requests[:batch]
             n = batch
         key = (batch, bucket[0], bucket[1])
-        # Staging buffers come from a per-shape free-list: with a pinned
-        # buffer the H2D copy is asynchronous, so a buffer returns to the
-        # list only once its batch's results are read back (_convert).
+        # Staging buffers (the frames, and heights and widths packed as one
+        # (2, B) int32 array like the JAX engine's `shw`) come from a
+        # per-shape free-list: from pinned memory both H2D copies are
+        # asynchronous, so dispatch does not wait for the device, and a pair
+        # returns to the list only once its batch's results are read back
+        # (_convert).
         free = self._staging.setdefault(key, [])
-        staging = free.pop() if free else torch.zeros(
-            (batch, bucket[0], bucket[1], 3), dtype=torch.uint8,
-            pin_memory=self.device.type == "cuda")
-        host = staging.numpy()
-        heights = np.ones((batch,), np.int32)
-        widths = np.ones((batch,), np.int32)
+        pin = self.device.type == "cuda"
+        frames, shw = free.pop() if free else (
+            torch.zeros((batch, bucket[0], bucket[1], 3), dtype=torch.uint8,
+                        pin_memory=pin),
+            torch.empty((2, batch), dtype=torch.int32, pin_memory=pin))
+        host, hw = frames.numpy(), shw.numpy()
+        hw.fill(1)
         for i, r in enumerate(requests):
             host[i, :r.height, :r.width] = r.data
-            heights[i] = r.height
-            widths[i] = r.width
-        frames_d = staging.to(self.device, non_blocking=True)
-        hs_d = torch.from_numpy(heights).to(self.device)
-        ws_d = torch.from_numpy(widths).to(self.device)
+            hw[:, i] = (r.height, r.width)
+        frames_d = frames.to(self.device, non_blocking=True)
+        shw_d = shw.to(self.device, non_blocking=True)
         out = self.get_step(batch, bucket)(
-            self._params, frames_d, hs_d, ws_d, self._class_weights,
+            self._params, frames_d, shw_d[0], shw_d[1], self._class_weights,
             self.config.confidence_threshold, self.config.nms_threshold)
         return PendingBatch(requests=requests, out=out, t0=t0, n=n,
-                            staging_key=key, staging_buf=staging)
+                            staging_key=key, staging_buf=(frames, shw))
 
     def _sim_pending(self, requests: List[InferenceRequest]) -> PendingBatch:
         pb = PendingBatch(requests=requests, out=None, t0=time.perf_counter(),
@@ -355,7 +390,7 @@ class InferenceEngine:
     def _convert(self, pending: PendingBatch,
                  host_out: np.ndarray) -> List[EngineResult]:
         if pending.staging_buf is not None:
-            # Results are on host => the step ran => its H2D copy finished.
+            # Results are on host => the step ran => its H2D copies finished.
             self._staging.setdefault(pending.staging_key, []).append(
                 pending.staging_buf)
             pending.staging_buf = None
