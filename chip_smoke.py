@@ -38,7 +38,24 @@ and the script exits non-zero:
    time by kernel (torch.profiler) and the idle share; at batch 8 also
    each port kernel's device time inside the step, the kernels the step
    launches, and the device time and kernels of its NMS stage.
-5. report: a `kernels:` line, one JSON line of kernel numbers, and the
+5. server: the port's DetectionServer in this process on the card, with
+   the deployed config (free loopback ports, warmup, no device frame
+   cache), driven over loopback UDP by the port's SimClient: 8 clients
+   handshake and stream raw 160x120 frames at 60 fps for 4 s from client
+   threads. Gates: every client gets results; frames sent = results +
+   the drops /statusz counts (engine drops and the kernel's receive-buffer
+   drops), short by at most SERVER_SLACK frames; each kernel's launch count
+   rose during the load (the 1x1 GEMM on the tensor cores); GET /statusz
+   answers 200 with the engine's status; the native codec served. Then a
+   second server on the same engine with tracking off serves 8 frames one
+   at a time, each result equal to engine.infer_batch on the same frame
+   through a fresh adapter (counts, classes and ids equal; boxes and
+   confidences within 1e-3); without cv2 a JPEG keyframe raises
+   bad_packets and the server keeps serving. Printed, not gated: the
+   server's detect latency p50 and p99, results a second, batch sizes, the
+   device idle share during the load (torch.profiler), beside the card's
+   name and power limit; the load's launches on a `server kernels:` line.
+6. report: a `kernels:` line, one JSON line of kernel numbers, and the
    result line `{"ok": true, "device": {...}}` last.
 """
 
@@ -93,6 +110,16 @@ KERNEL_SYMBOLS = {
     "conv1x1_bias_act": ("conv1x1_wgmma_kernel", "mm_bias_act_kernel"),
     "bias_silu": ("bias_silu_vec_kernel", "bias_silu_kernel"),
 }
+
+
+# Server phase: clients, their frame rate and size (raw RGB that fits one
+# datagram: 57,600 B), seconds of load, and the frames that may still be in
+# flight when the counts are read (one a client).
+SERVER_CLIENTS = 8
+SERVER_FPS = 60.0
+SERVER_SECONDS = 4.0
+SERVER_FRAME = (160, 120)
+SERVER_SLACK = SERVER_CLIENTS
 
 
 def require(cond: bool, msg: str) -> None:
@@ -698,6 +725,185 @@ def fixture_gate(got: np.ndarray, want: np.ndarray, conf: float,
                 counts_jax=w["count"].tolist())
 
 
+def server_frames() -> list:
+    """Eight 160x120 frames: four of the task the weights were trained on
+    (cropped from 160x160), four synthetic game frames."""
+    w, h = SERVER_FRAME
+    task = [np.ascontiguousarray(f[:h]) for f in task_frames(4, w, seed=31)]
+    return task + [synthetic_frame(w, h, seed=40 + i, t=0.4 * i)
+                   for i in range(4)]
+
+
+def launch_counts() -> dict:
+    from zero_latency_yolo_tpu_torch.ops import act_cuda, conv1x1_cuda, nms_cuda
+    return {"nms_keep": nms_cuda.launches,
+            "conv1x1_bias_act": conv1x1_cuda.launches,
+            "conv1x1_wgmma": conv1x1_cuda.launches_by_route["wgmma"],
+            "bias_silu": act_cuda.launches}
+
+
+def reset_launch_counts() -> None:
+    from zero_latency_yolo_tpu_torch.ops import act_cuda, conv1x1_cuda, nms_cuda
+    nms_cuda.launches = conv1x1_cuda.launches = act_cuda.launches = 0
+    conv1x1_cuda.launches_by_route = {r: 0 for r in conv1x1_cuda.ROUTES}
+
+
+def server_phase(torch, device: str, smi_line: str) -> dict:
+    """Phase 5 (see the module docstring). Returns the load's numbers and
+    the launches it made."""
+    from zero_latency_yolo_tpu_torch.bench_server import (
+        ServerThread, deployed_config, http_get, run_load)
+    from zero_latency_yolo_tpu_torch.protocol import FrameDataPacket, native
+    from zero_latency_yolo_tpu_torch.runtime import frames as frames_mod
+    from zero_latency_yolo_tpu_torch.runtime.adapters import get_adapter
+    from zero_latency_yolo_tpu_torch.runtime.engine import InferenceRequest
+    from zero_latency_yolo_tpu_torch.runtime.server import DetectionServer
+    from zero_latency_yolo_tpu_torch.runtime.simulator import SimClient
+
+    codec = (f"native ({native._LIB._name})" if native.HAVE_NATIVE
+             else "pure Python")
+    has_cv2 = frames_mod.cv2 is not None
+    print(f"server codec: {codec}; cv2 present: {has_cv2}", flush=True)
+    require(native.HAVE_NATIVE, "the native codec did not build")
+    w, h = SERVER_FRAME
+    cfg = deployed_config(tracking=True)
+    t_start = time.perf_counter()
+    srv = ServerThread(DetectionServer(cfg, device=device)).start(warmup=True)
+    server, engine = srv.server, srv.server.engine
+    print(f"server up on udp/{server.port} (web {cfg.network.web_port}) in "
+          f"{time.perf_counter() - t_start:.2f} s, warmup included; engine "
+          f"{engine.status()['engine']} on {engine.device}, simulation "
+          f"{engine.simulation}", flush=True)
+    try:
+        require(not engine.simulation, "server engine in simulation mode")
+        reset_launch_counts()
+        load = run_load(torch, server, "threads", SERVER_CLIENTS, SERVER_FPS,
+                        SERVER_SECONDS)
+        launches = launch_counts()
+        code, body = http_get(cfg.network.web_port, "/statusz")
+        require(code == 200, f"GET /statusz answered {code}")
+        st = json.loads(body)
+    finally:
+        srv.stop()
+    n_sent, results = sum(load["sent"]), load["results"]
+    unaccounted = (n_sent - sum(results) - load["engine_drops"]
+                   - load["kernel_drops"])
+    print(f"server load: {SERVER_CLIENTS} clients (threads of this process) "
+          f"x raw {w}x{h} frames at {SERVER_FPS:g} fps for {SERVER_SECONDS:g}"
+          f" s: sent {n_sent}, server received {load['frames_received']}, "
+          f"results {sum(results)} (per client {results}), engine drops "
+          f"{load['engine_drops']}, kernel drops {load['kernel_drops']}, bad "
+          f"packets {load['bad_packets']}; unaccounted {unaccounted} "
+          f"(allowed 0..{SERVER_SLACK}); socket receive buffer "
+          f"{load['rcvbuf']} B; the machine's UDP and IP drop counters over "
+          f"the load {load['net']}", flush=True)
+    print(f"server statusz: engine {st['engine']['engine']} on "
+          f"{st['engine']['device']}, inferences {st['engine']['inferences']}, "
+          f"errors {st['engine']['errors']}, avg batch "
+          f"{st['engine']['avg_batch']}", flush=True)
+    require(all(r > 0 for r in results), f"a client got no results: {results}")
+    require(0 <= unaccounted <= SERVER_SLACK,
+            f"{unaccounted} frames unaccounted for (the machine's counters "
+            f"over the load: {load['net']})")
+    require(st["engine"]["engine"] == "torch-cuda"
+            and st["engine"]["device"].startswith(device)
+            and st["engine"]["errors"] == "0",
+            f"statusz engine status: {st['engine']}")
+    print("server kernels: " + ", ".join(
+        f"{k} launches={v}" for k, v in launches.items()), flush=True)
+    require(all(launches[k] > 0 for k in KERNELS),
+            f"a kernel was not launched while serving: {launches}")
+    require(launches["conv1x1_wgmma"] == launches["conv1x1_bias_act"],
+            f"bf16 1x1 convs off the tensor cores while serving: {launches}")
+    idle = load["idle_share"]
+    print(f"server on {smi_line}: detect latency p50 {load['p50_ms']:.3f} ms,"
+          f" p99 {load['p99_ms']:.3f} ms (last {load['latency_samples']} "
+          f"results, arrival to result sent); served "
+          f"{load['results_per_s']:.1f} results/s; batch sizes "
+          f"{load['batch_sizes']}; engine.dispatch host ms p50 "
+          f"{load['dispatch_ms_p50']:.2f}, p90 {load['dispatch_ms_p90']:.2f}; "
+          f"device busy {load['busy_ms']:.1f} ms of {load['wall_ms']:.1f} ms, "
+          f"idle share {'not measured' if idle is None else f'{idle:.3f}'} "
+          "(profiler, last second of the load)", flush=True)
+
+    # Exactness: tracking off, one frame at a time, against infer_batch
+    # through a fresh adapter of the same config.
+    cfg2 = deployed_config(tracking=False)
+    srv2 = ServerThread(DetectionServer(cfg2, engine=engine,
+                                        device=device)).start(warmup=False)
+    server2 = srv2.server
+    frames = server_frames()
+    c = SimClient(("127.0.0.1", server2.port), screen_width=w,
+                  screen_height=h)
+    try:
+        c.connect()
+        c.start_receiver()
+        got = []
+        for f in frames:
+            fid = c.send_raw_frame(f)
+            res = c.wait_results(len(got) + 1, timeout=30)
+            require(len(res) == len(got) + 1 and res[-1].frame_id == fid,
+                    f"frame {fid} unanswered")
+            got.append(res[-1])
+        # A JPEG keyframe: without cv2 a bad packet; serving goes on.
+        bad0 = server2.bad_packets.value
+        if has_cv2:
+            c.send_jpeg_keyframe(frames[0])
+        else:
+            c._send(FrameDataPacket(
+                frame_id=10 ** 6, frame_timestamp=0, width=w, height=h,
+                keyframe=True,
+                data=b"\xff\xd8\xff\xe0" + bytes(4096)).serialize())
+            deadline = time.perf_counter() + 10
+            while (server2.bad_packets.value == bad0
+                   and time.perf_counter() < deadline):
+                time.sleep(0.02)
+            require(server2.bad_packets.value == bad0 + 1,
+                    "a JPEG keyframe without cv2 did not count a bad packet")
+        fid = c.send_raw_frame(frames[0])
+        res = c.wait_results(len(got) + 1 + has_cv2, timeout=30)
+        require(res and res[-1].frame_id == fid,
+                "the server stopped serving after the JPEG keyframe")
+        print(f"server JPEG keyframe (cv2 "
+              f"{'present: served' if has_cv2 else 'absent: refused'}): bad "
+              f"packets {bad0} -> {server2.bad_packets.value}; the next raw "
+              "frame was served", flush=True)
+    finally:
+        c.stop()
+        srv2.stop()
+    game = next((n for n, g in cfg2.game_adapters.items() if g.enabled),
+                "cs16")
+    adapter = get_adapter(game, cfg2.game_adapters[game],
+                          enable_tracking=False)
+    adapter.register_client(1, w, h, 1)
+    worst = 0.0
+    counts = []
+    for i, (f, r) in enumerate(zip(frames, got)):
+        want = engine.infer_batch([InferenceRequest(
+            client_id=1, frame_id=r.frame_id, timestamp=r.frame_timestamp,
+            width=w, height=h, data=f)])[0].detections
+        want = adapter.process_detections(1, want)[:32]
+        counts.append(len(want))
+        require(len(r.detections) == len(want)
+                and [d.class_id for d in r.detections]
+                == [d.class_id for d in want]
+                and [d.track_id for d in r.detections]
+                == [d.track_id for d in want],
+                f"server frame {i}: {len(r.detections)} detections vs "
+                f"infer_batch {len(want)}, or classes or ids differ")
+        for a, b in zip(r.detections, want):
+            worst = max(worst, *(abs(getattr(a, k) - getattr(b, k)) for k in
+                                 ("x", "y", "width", "height", "confidence")))
+    print(f"server exactness: 8 frames one at a time, tracking off, against "
+          f"engine.infer_batch + a fresh adapter: counts {counts} equal, "
+          f"classes and ids equal, max box/confidence difference "
+          f"{worst:.3g} (tolerance 1e-3)", flush=True)
+    require(worst <= 1e-3, "server results differ from infer_batch by more "
+                           "than 1e-3")
+    require(sum(counts) > 0, "exactness check vacuous: no detections")
+    return dict(load, launches=launches)
+
+
 def main() -> None:
     with Phase("device"):
         import torch
@@ -707,7 +913,8 @@ def main() -> None:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"],
             capture_output=True, text=True, check=True, timeout=60)
-        print(smi.stdout.strip().splitlines()[0], flush=True)
+        smi_line = smi.stdout.strip().splitlines()[0]
+        print(smi_line, flush=True)
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"python {sys.version.split()[0]} "
               f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -909,6 +1116,9 @@ def main() -> None:
                   f"busy {busy:.3f} ms/batch (profiler; wall under it "
                   f"{pwall:.3f} ms), idle share {max(0.0, 1 - busy / wall):.3f}",
                   flush=True)
+
+    with Phase("server"):
+        server_phase(torch, DEVICE, smi_line)
 
     print("kernels: " + ", ".join(f"{n} launches={launches[n]}"
                                   for n in KERNELS), flush=True)

@@ -3,8 +3,11 @@ at the serving step's own shapes (yolov8n, 416 px, batch 8) and at edge
 shapes it does not reach (ragged tiles, K below a block, C not a multiple
 of the vector width, misaligned buffers), on both routes of the 1x1 GEMM;
 the NMS kernel exactly, on its edge cases too. Also the engine on the card:
-dispatch returns before the device has run the step, and the step's full
-f32 switch holds under PyTorch's default TF32 settings.
+dispatch returns before the device has run the step, the step's full f32
+switch holds under PyTorch's default TF32 settings, a pending batch's CUDA
+event says whether the step and its result's copy are done, complete()
+reads the pinned copy without another one, and two batches in flight
+through the ContinuousBatcher both complete, in order.
 
 Needs an NVIDIA GPU and nvcc: marked `cuda` and skipped elsewhere. This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -302,3 +305,112 @@ def test_f32_step_precision_holds_under_default_tf32(dev, monkeypatch):
     loose = rel_err(torch.nn.functional.conv2d(x, w, padding=1))
     print(f"conv rel err: full f32 {strict:.3g}, default TF32 {loose:.3g}")
     assert strict < 1e-5
+
+
+def _requests(n, seed=0, first_client=1):
+    from zero_latency_yolo_tpu_torch.runtime.engine import InferenceRequest
+    rng = np.random.default_rng(seed)
+    return [InferenceRequest(client_id=first_client + i, frame_id=i,
+                             timestamp=i, width=128, height=96,
+                             data=rng.integers(0, 256, (96, 128, 3),
+                                               dtype=np.uint8))
+            for i in range(n)]
+
+
+def test_pending_event_follows_the_device(dev):
+    """dispatch starts the result's D2H copy into pinned memory and records
+    an event behind it: not ready while a queued spin of the GPU runs,
+    ready after; the batcher's _ready reads that event."""
+    from zero_latency_yolo_tpu_torch.runtime.scheduler import ContinuousBatcher
+    eng = _small_engine("bfloat16")
+    reqs = _requests(2)
+    eng.complete(eng.dispatch(reqs))  # builds and warms everything
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9))  # about a second of the GPU's clock
+    pending = eng.dispatch(reqs)
+    assert pending.is_real_device and pending.serve_size == eng.model_size
+    assert pending.host is not None and pending.host.is_pinned()
+    assert not pending.event.query()
+    assert not ContinuousBatcher._ready(pending)
+    pending.event.synchronize()
+    assert ContinuousBatcher._ready(pending)
+    assert len(eng.complete(pending)) == 2
+
+
+def test_complete_reads_the_pinned_copy_without_another(dev, monkeypatch):
+    """Once the event has fired, complete() reads the pinned buffer: the
+    device output may be overwritten and Tensor.cpu() may fail, and the
+    results are still those of the step."""
+    eng = _small_engine("float32")
+    reqs = _requests(2, seed=1)
+    want = eng.complete(eng.dispatch(reqs))
+    pending = eng.dispatch(reqs)
+    pending.event.synchronize()
+    with torch.inference_mode():
+        pending.out.fill_(0.0)
+    torch.cuda.synchronize()
+
+    def no_copy(self, *a, **k):
+        raise AssertionError("complete() made a second D2H copy")
+    monkeypatch.setattr(torch.Tensor, "cpu", no_copy)
+    got = eng.complete(pending)
+    assert sum(len(r.detections) for r in want) > 0
+    assert [[vars(d) for d in r.detections] for r in got] == [
+        [vars(d) for d in r.detections] for r in want]
+
+
+def test_two_batches_in_flight_complete_in_order(dev):
+    """With the GPU held busy, the batcher dispatches a second batch while
+    the first is still running (two in flight); both complete, first
+    first. The second stays unready until the first has completed."""
+    import threading
+
+    from zero_latency_yolo_tpu_torch.runtime.scheduler import ContinuousBatcher
+    eng = _small_engine("bfloat16")
+    eng.complete(eng.dispatch(_requests(2)))
+    got, depth = [], []
+    cv = threading.Condition()
+
+    def on_result(results):
+        with cv:
+            got.append([r.client_id for r in results])
+            cv.notify()
+
+    b = ContinuousBatcher(eng, on_result, max_batch=1, batch_window_ms=1.0,
+                          max_inflight=2)
+    dispatch = b._dispatch
+    armed = []
+
+    def spy(batch):
+        if armed and not depth:  # this batch waits behind a spin of the GPU
+            torch.cuda._sleep(int(2e9))  # about a second of its clock
+        out = dispatch(batch)
+        if armed:
+            depth.append(len(b._inflight) + len(out))
+        return out
+    b._dispatch = spy
+    b.start()
+    try:
+        # A first frame on the batcher thread: a thread's first step
+        # creates its cuDNN and cuBLAS handles, which waits for the device.
+        b.submit(_requests(1, seed=1, first_client=3)[0])
+        with cv:
+            assert cv.wait_for(lambda: got == [[3]], timeout=60)
+        got.clear()
+        armed.append(True)
+        # One frame a batch (max_batch=1), both queued at once (under the
+        # batcher's re-entrant lock): the second batch is dispatched while
+        # the first still waits behind the spin, before the batcher could
+        # find its queue empty and wait for the first.
+        reqs = (_requests(1, seed=2, first_client=1)
+                + _requests(1, seed=3, first_client=2))
+        with b._cv:
+            for r in reqs:
+                b.submit(r)
+        with cv:
+            cv.wait_for(lambda: len(got) >= 2, timeout=60)
+    finally:
+        b.stop()
+    assert depth[:2] == [1, 2], depth
+    assert got == [[1], [2]]
+    assert eng.error_count.value == 0

@@ -101,3 +101,51 @@ def test_find_nvcc_raises_when_absent(tmp_path, monkeypatch):
                         if str(p) == "/usr/local/cuda/bin/nvcc" else Path(p))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+NATIVE = PORT / "native"
+
+
+@pytest.mark.parametrize("path", sorted(NATIVE.glob("*.[ch]*")),
+                         ids=lambda p: p.name)
+def test_native_sources_include_only_their_own_headers(path):
+    """The port's C++ sources include system headers and their own
+    directory's headers, nothing of the JAX package's native/ directory."""
+    import re
+    for line in path.read_text().splitlines():
+        m = re.match(r'\s*#\s*include\s*"([^"]+)"', line)
+        if m:
+            assert (NATIVE / m.group(1)).resolve().parent == NATIVE, line
+        assert "zero_latency_yolo_tpu/" not in line, line
+
+
+def test_native_build_reads_only_the_port_sources(tmp_path, monkeypatch):
+    """protocol/native.build() hands the compiler the port's own sources
+    and writes into its build directory, never into a source tree; a
+    failing compiler raises with its output and leaves no library."""
+    from zero_latency_yolo_tpu_torch.protocol import native
+    log = tmp_path / "argv"
+    cxx = tmp_path / "cxx"
+    cxx.write_text("#!/bin/sh\n"
+                   f"for a in \"$@\"; do echo \"$a\" >> {log}; done\n"
+                   "while [ $# -gt 0 ]; do\n"
+                   "  if [ \"$1\" = -o ]; then echo lib > \"$2\"; fi; shift\n"
+                   "done\n")
+    cxx.chmod(cxx.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("CXX", str(cxx))
+    monkeypatch.setattr(native, "_BUILD_DIR", tmp_path / "build")
+    path = native.build()
+    assert path.parent == tmp_path / "build" and path.read_text() == "lib\n"
+    files = [a for a in log.read_text().split() if "/" in a and a != str(cxx)]
+    sources = [f for f in files if f.endswith(".cpp")]
+    assert sorted(Path(f).name for f in sources) == ["codec.cpp", "udp.cpp"]
+    assert all(Path(f).parent == NATIVE for f in sources)
+    assert all(Path(f).parent == tmp_path / "build" for f in files
+               if f not in sources)
+    assert not any("zero_latency_yolo_tpu/" in f for f in files)
+    assert "-std=c++17" in log.read_text().split()
+    path.unlink()
+    cxx.write_text("#!/bin/sh\necho 'codec.cpp:1: error' >&2\nexit 1\n")
+    with pytest.raises(RuntimeError, match="codec.cpp:1: error"):
+        native.build()
+    assert not list((tmp_path / "build").iterdir())

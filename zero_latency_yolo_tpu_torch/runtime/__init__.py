@@ -1,3 +1,3 @@
-from .engine import EngineResult, InferenceEngine, InferenceRequest
-
-__all__ = ["EngineResult", "InferenceEngine", "InferenceRequest"]
+from .tracker import KalmanTracker, MultiObjectTracker  # noqa: F401
+from .engine import EngineResult, InferenceEngine, InferenceRequest  # noqa: F401
+from .adapters import GameAdapter, get_adapter  # noqa: F401

@@ -8,7 +8,10 @@ The PyTorch counterpart of the JAX package's `runtime/engine.py`
 on the device, so one H2D copy (the padded frame batch) and one small D2H copy
 (the packed (B, 1 + 6*32) f32 result) happen per batch. The convs and the
 suppression scan go through the port's CUDA kernels (see `models/yolov8.py`
-and `ops/nms.py`).
+and `ops/nms.py`). `dispatch` starts the D2H copy into a pinned host buffer
+right after the step and records a CUDA event behind it, so the batcher can
+ask whether a batch is done (`PendingBatch.event`) and `complete` reads the
+buffer without a second copy.
 
 Batches are padded up to a batch bucket and frames into a frame bucket; the
 true per-frame (h, w) are runtime tensors. Simulation mode serves random
@@ -16,10 +19,15 @@ detections when the model file cannot be loaded, as the JAX engine does
 (reference onnx_engine.cpp:70-75, :1133-1177).
 
 Not ported yet, and refused at construction rather than served differently:
-the device frame cache, hot reload, serve-size ladders, the synthetic step,
-int8, meshes, and the layout experiments stem="s2d", select="perlevel",
-c2f="split". The TPU kernel switches tpu.nms / tpu.act / tpu.conv1x1 have no
-effect here.
+the device frame cache (`warmup(cache=...)` raises), serve-size ladders (so
+`effective_serve_size` is always the model size and `update_adaptive_slo`
+refuses to enable), the synthetic step, int8, meshes, and the layout
+experiments stem="s2d", select="perlevel", c2f="split". The TPU kernel
+switches tpu.nms / tpu.act / tpu.conv1x1 have no effect here.
+
+`create_engine` picks the engine from `config.inference_engine` under the
+JAX package's registry names: "jax" and "onnx" select `InferenceEngine`,
+"simulation" `SimulationEngine`.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from __future__ import annotations
 import contextlib
 import os
 import random
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -54,8 +63,14 @@ class InferenceRequest:
     timestamp: int
     width: int
     height: int
-    data: np.ndarray  # (h, w, 3) uint8 RGB
+    data: Optional[np.ndarray]  # (h, w, 3) uint8 RGB
+    keyframe: bool = False
+    # Accuracy floor (the client's min_serve_size). Without a serve-size
+    # ladder every request is served at the model size.
+    min_size: int = 0
     enqueue_t: float = field(default_factory=time.perf_counter)
+    # Stamped at payload-decode completion (the server rewinds enqueue_t to
+    # datagram arrival).
     decoded_t: float = field(default_factory=time.perf_counter)
 
 
@@ -72,6 +87,23 @@ class PendingBatch:
     # finished), then recycled.
     staging_key: Optional[Tuple[int, int, int]] = None
     staging_buf: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    # CUDA only: an event recorded on the stream after the step and after
+    # the D2H copy of `out` into the pinned buffer `host` (when the copy was
+    # started at dispatch: max_inflight <= 2). The event says whether the
+    # batch is done without waiting for it.
+    event: Optional[Any] = None
+    host: Optional[torch.Tensor] = None
+    # The JAX engine's synthetic-step finish time; the port has no synthetic
+    # step, so it stays None.
+    ready_at: Optional[float] = None
+    serve_size: int = 0
+
+    @property
+    def is_real_device(self) -> bool:
+        """True when completion needs a real device readback (the only kind
+        that can wedge): not simulated, not a synthetic step."""
+        return (self.out is not None and self.ready_at is None
+                and self.simulated is None)
 
 
 @dataclass
@@ -102,6 +134,18 @@ def _pick_batch(buckets: Sequence[int], n: int) -> int:
         if n <= b:
             return b
     return max(buckets)
+
+
+def group_by_bucket(frame_buckets: Sequence[Tuple[int, int]],
+                    requests: Sequence[InferenceRequest]
+                    ) -> Dict[Optional[Tuple[int, int]], List[InferenceRequest]]:
+    """Group requests by the frame bucket that covers them (None = none
+    does); dispatch() serves one bucket per call."""
+    groups: Dict[Optional[Tuple[int, int]], List[InferenceRequest]] = {}
+    for r in requests:
+        groups.setdefault(_pick_bucket(frame_buckets, r.height, r.width),
+                          []).append(r)
+    return groups
 
 
 @contextlib.contextmanager
@@ -149,7 +193,15 @@ def _check_supported(config: ServerConfig) -> None:
 
 
 class InferenceEngine:
-    """Synchronous batched compute wrapper; the caller owns queues/threads."""
+    """Synchronous batched compute wrapper; the caller owns queues/threads.
+
+    Device work (dispatch, complete, warmup, applying a hot reload) happens
+    on one thread at a time: in the server, warmup runs before the batcher
+    starts and the batcher thread alone does the rest. Thresholds, SLO and
+    reload requests may come from any thread; they only stage host state."""
+
+    # SimulationEngine: random detections, no model load, no device state.
+    _always_simulate = False
 
     def __init__(self, config: ServerConfig,
                  params: Optional[Dict[str, Any]] = None,
@@ -169,10 +221,17 @@ class InferenceEngine:
         self.batch_buckets = tuple(int(b) for b in tpu.batch_buckets)
         self.frame_buckets = tuple(tuple(b) for b in tpu.frame_buckets)
         self.pre_nms_topk = int(tpu.pre_nms_topk)
+        self.max_inflight = max(int(tpu.max_inflight), 1)
+        # No serve-size ladder (tpu.serve_sizes is refused): one rung.
+        self.serve_sizes = (self.model_size,)
+        self._serve_size = self.model_size
+        self.adaptive_slo_ms = 0.0
 
-        self.simulation = False
+        self.simulation = self._always_simulate
         self._model_hash: Optional[str] = None
-        if params is None:
+        self._failed_hash: Optional[str] = None  # last unloadable file hash
+        self._file_sig: Optional[Tuple[int, int]] = None  # (mtime_ns, size)
+        if params is None and not self.simulation:
             params, self.spec, self.simulation = load_model(
                 config.model_path, tpu.variant, tpu.num_classes)
             if not self.simulation:
@@ -183,13 +242,11 @@ class InferenceEngine:
         # Simulation never touches the device.
         self._params = None if self.simulation else place_params(
             params_from_jax(params), self.device, self.dtype)
-
-        nc = self.spec.num_classes
-        names = CS16_CLASS_NAMES if nc == len(CS16_CLASS_NAMES) else tuple(
-            f"class_{i}" for i in range(nc))
-        self._class_weights = torch.tensor(
-            config.detection.class_weight_vector(names), dtype=torch.float32,
-            device=None if self.simulation else self.device)
+        self._class_weights = self._class_weight_tensor()
+        # A hot reload staged by maybe_reload (host tensors, and the file's
+        # geometry when leaving simulation), applied by the dispatch thread.
+        self._staged: Optional[Tuple[Any, Optional[ModelSpec]]] = None
+        self._params_lock = threading.Lock()
 
         self._step = self._build_step()
         # Per-shape free-lists of host staging buffer pairs (see dispatch).
@@ -199,11 +256,24 @@ class InferenceEngine:
         # Telemetry (reference stats fields, onnx_engine.h:261-273).
         self.inference_count = Counter()
         self.frames_dropped = Counter()
+        # Subset of frames_dropped: oversized-frame sheds (client misconfig,
+        # load-invariant; rate control leaves them out of its drop share).
+        self.frames_oversized = Counter()
+        self.error_count = Counter()
         self.latency = RollingStats()      # dispatch -> readback (pipeline)
         self.e2e_latency = RollingStats()  # submit -> result
         self.batch_sizes = RollingStats()
         self._rng = random.Random(1337)
         self.warmed = self.simulation
+
+    def _class_weight_tensor(self) -> torch.Tensor:
+        nc = self.spec.num_classes
+        names = CS16_CLASS_NAMES if nc == len(CS16_CLASS_NAMES) else tuple(
+            f"class_{i}" for i in range(nc))
+        return torch.tensor(
+            self.config.detection.class_weight_vector(names),
+            dtype=torch.float32,
+            device=None if self.simulation else self.device)
 
     # ---------------------------------------------------------------- step
     def _build_step(self, plain: bool = False):
@@ -242,8 +312,14 @@ class InferenceEngine:
         return self._step
 
     def warmup(self, batches: Optional[Sequence[int]] = None,
-               buckets: Optional[Sequence[Tuple[int, int]]] = None) -> float:
-        """Run every (batch, bucket) step once; returns seconds spent."""
+               buckets: Optional[Sequence[Tuple[int, int]]] = None,
+               cache=None, inflight: int = 0) -> float:
+        """Run every (batch, bucket) step once; returns seconds spent. The
+        server's call passes its device frame cache (None: not ported) and
+        its pipeline depth, for which PyTorch has nothing to compile."""
+        if cache is not None:
+            raise ValueError("warmup(cache=...): the device frame cache is "
+                             "not ported to the PyTorch engine")
         t0 = time.perf_counter()
         if not self.simulation:
             for b in (batches or self.batch_buckets):
@@ -262,6 +338,89 @@ class InferenceEngine:
         dt = time.perf_counter() - t0
         log.info("engine warmup done in %.1fs", dt)
         return dt
+
+    def update_adaptive_slo(self, slo_ms: float) -> bool:
+        """Runtime SLO change (SET_CONFIG / CONFIG_UPDATE). Enabling needs a
+        warmed serve-size ladder, which the port has not got: refused, as
+        the JAX engine refuses it without one. Disabling (0) is a no-op."""
+        if float(slo_ms) > 0:
+            log.warning("adaptive_slo_ms ignored: no tpu.serve_sizes ladder "
+                        "(not ported)")
+            return False
+        return True
+
+    def effective_serve_size(self, min_size: int = 0) -> int:
+        """Serve rung for a request with accuracy floor `min_size`: without
+        a ladder, always the model size."""
+        return self.model_size
+
+    # ------------------------------------------------------------ hot swap
+    def maybe_reload(self) -> bool:
+        """Re-hash the model file; on change, stage the new params on the
+        host. The dispatch thread places them on the device at its next
+        batch (_current_params): this runs on the server's watcher thread,
+        which must not touch the device. Reference onnx_engine.cpp:473-515."""
+        path = self.config.model_path
+        try:
+            st = os.stat(path)
+        except OSError:
+            return False
+        sig = (st.st_mtime_ns, st.st_size)
+        if sig == self._file_sig:
+            return False  # unchanged since the last check: skip the hash
+        try:
+            new_hash = file_sha256(path)
+        except OSError:
+            return False
+        self._file_sig = sig
+        if new_hash in (self._model_hash, self._failed_hash):
+            return False
+        params, spec, sim = load_model(path, self.config.tpu.variant,
+                                       self.config.tpu.num_classes)
+        if sim:
+            self._failed_hash = new_hash  # do not re-parse it every tick
+            return False
+        if not self.simulation and (
+                spec.num_classes != self.spec.num_classes
+                or spec.backbone_channels != self.spec.backbone_channels
+                or spec.depth != self.spec.depth
+                or spec.reg_max != self.spec.reg_max):
+            log.error("hot-swap rejected: %s is %s/nc=%d but the engine "
+                      "serves %s/nc=%d — restart to change architecture",
+                      path, spec.variant, spec.num_classes,
+                      self.spec.variant, self.spec.num_classes)
+            self._failed_hash = new_hash
+            return False
+        staged = params_from_jax(params)
+        with self._params_lock:
+            # Leaving simulation adopts the file's geometry.
+            self._staged = (staged, spec if self.simulation else None)
+            self._model_hash = new_hash
+        log.info("hot-reload staged: %s (sha256=%s)", path, new_hash[:12])
+        return True
+
+    def _current_params(self):
+        """Dispatch thread only: apply a staged hot reload (the device copy
+        happens here), then return the live params."""
+        with self._params_lock:
+            staged, self._staged = self._staged, None
+        if staged is not None:
+            params, spec = staged
+            self.simulation = False
+            if spec is not None:
+                self.spec = spec
+                self._step = self._build_step()
+            self._class_weights = self._class_weight_tensor()
+            self._params = place_params(params, self.device, self.dtype)
+            log.info("hot-reload applied on the dispatch thread")
+        return self._params
+
+    def _simulating(self) -> bool:
+        """Whether this dispatch serves simulated detections; a reload staged
+        while simulating is applied here first."""
+        if self.simulation and self._staged is not None:
+            self._current_params()
+        return self.simulation
 
     # --------------------------------------------------------------- infer
     def infer_batch(self, requests: List[InferenceRequest]) -> List[EngineResult]:
@@ -284,12 +443,20 @@ class InferenceEngine:
                         out[i] = e
         return [e for e in out if e is not None]
 
-    def dispatch(self, requests: List[InferenceRequest]) -> PendingBatch:
+    def dispatch(self, requests: List[InferenceRequest],
+                 size: Optional[int] = None) -> PendingBatch:
         """Stage + launch one device step; returns without waiting for the
-        device. Pair with complete()."""
+        device. Pair with complete(). `size` is the serve rung the caller
+        grouped by (effective_serve_size): only the model size exists."""
         if not requests:
             return PendingBatch(requests=[], out=None, t0=0.0, n=0)
-        if self.simulation:
+        if size is not None and int(size) != self.model_size:
+            raise ValueError(f"serve size {size}: the engine serves only its "
+                             f"model size {self.model_size} (no ladder)")
+        if any(r.data is None for r in requests):
+            raise ValueError("request without pixels: frames from the device "
+                             "frame cache are not ported")
+        if self._simulating():
             return self._sim_pending(requests)
         t0 = time.perf_counter()
         # Shed frames larger than every configured bucket.
@@ -298,6 +465,7 @@ class InferenceEngine:
                      is None]
         if oversized:
             self.frames_dropped.inc(len(oversized))
+            self.frames_oversized.inc(len(oversized))
             log.warning("shed %d oversized frame(s) (max bucket %s)",
                         len(oversized), max(self.frame_buckets))
             bad = {id(r) for r in oversized}
@@ -310,13 +478,10 @@ class InferenceEngine:
         if bucket is None:
             # Mixed orientations under non-nested buckets: keep the largest
             # same-bucket subset.
-            groups: Dict[Tuple[int, int], List[InferenceRequest]] = {}
-            for r in requests:
-                groups.setdefault(
-                    _pick_bucket(self.frame_buckets, r.height, r.width),
-                    []).append(r)
             total = len(requests)
-            bucket, requests = max(groups.items(), key=lambda kv: len(kv[1]))
+            bucket, requests = max(
+                group_by_bucket(self.frame_buckets, requests).items(),
+                key=lambda kv: len(kv[1]))
             self.frames_dropped.inc(total - len(requests))
             log.warning("mixed-bucket dispatch: kept %d, dropped %d",
                         len(requests), total - len(requests))
@@ -346,18 +511,34 @@ class InferenceEngine:
         for i, r in enumerate(requests):
             host[i, :r.height, :r.width] = r.data
             hw[:, i] = (r.height, r.width)
+        params = self._current_params()
         frames_d = frames.to(self.device, non_blocking=True)
         shw_d = shw.to(self.device, non_blocking=True)
         out = self.get_step(batch, bucket)(
-            self._params, frames_d, shw_d[0], shw_d[1], self._class_weights,
+            params, frames_d, shw_d[0], shw_d[1], self._class_weights,
             self.config.confidence_threshold, self.config.nms_threshold)
+        event = host = None
+        if out.is_cuda:
+            # Start the result's D2H copy now, so complete() finds it on the
+            # host; only at depth <= 2, where complete() reads each batch
+            # (deeper, complete_many reads several in one copy). The event
+            # marks the end of the step and of the copy.
+            if self.max_inflight <= 2:
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+                host.copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
         return PendingBatch(requests=requests, out=out, t0=t0, n=n,
-                            staging_key=key, staging_buf=(frames, shw))
+                            staging_key=key, staging_buf=(frames, shw),
+                            event=event, host=host,
+                            serve_size=self.model_size)
 
     def _sim_pending(self, requests: List[InferenceRequest]) -> PendingBatch:
         pb = PendingBatch(requests=requests, out=None, t0=time.perf_counter(),
                           n=len(requests),
-                          simulated=[self._simulate(r) for r in requests])
+                          simulated=[self._simulate(r) for r in requests],
+                          serve_size=self.model_size)
         for er in pb.simulated:
             er.batch_n = len(requests)
         return pb
@@ -368,14 +549,19 @@ class InferenceEngine:
             return []
         if pending.simulated is not None:
             return pending.simulated
+        if pending.host is not None:  # the copy started at dispatch
+            pending.event.synchronize()
+            return self._convert(pending, pending.host.numpy())
         return self._convert(pending, pending.out.cpu().numpy())  # one D2H
 
     def complete_many(self, pendings: List[PendingBatch]
                       ) -> List[List[EngineResult]]:
-        """Complete several in-flight batches with ONE host readback (a
-        device-side concat of their packed outputs)."""
+        """Complete several in-flight batches. Those whose copy did not start
+        at dispatch are read with ONE host readback (a device-side concat of
+        their packed outputs)."""
         real = [p for p in pendings
-                if p.requests and p.simulated is None and p.out is not None]
+                if p.requests and p.simulated is None and p.out is not None
+                and p.host is None]
         host: Dict[int, np.ndarray] = {}
         if len(real) > 1:
             flat = torch.cat([p.out for p in real], dim=0).cpu().numpy()
@@ -387,13 +573,20 @@ class InferenceEngine:
         return [self._convert(p, host[id(p)]) if id(p) in host
                 else self.complete(p) for p in pendings]
 
+    def recycle_staging(self, pendings: List[PendingBatch]) -> None:
+        """Return the staging buffers of batches whose completion failed to
+        the free-list (normal recycling happens in _convert). Batcher thread
+        only, like _convert."""
+        for p in pendings:
+            if p.staging_buf is not None:
+                self._staging.setdefault(p.staging_key, []).append(
+                    p.staging_buf)
+                p.staging_buf = None
+
     def _convert(self, pending: PendingBatch,
                  host_out: np.ndarray) -> List[EngineResult]:
-        if pending.staging_buf is not None:
-            # Results are on host => the step ran => its H2D copies finished.
-            self._staging.setdefault(pending.staging_key, []).append(
-                pending.staging_buf)
-            pending.staging_buf = None
+        # Results are on host => the step ran => its H2D copies finished.
+        self.recycle_staging([pending])
         out = nms_ops.unpack_outputs(host_out)
         boxes, scores = out["boxes"], out["scores"]
         classes, counts = out["classes"], out["count"]
@@ -421,7 +614,7 @@ class InferenceEngine:
                 infer_ms=infer_ms, queue_ms=max(e2e_ms - infer_ms, 0.0),
                 recv_t=r.enqueue_t,
                 decode_ms=max((r.decoded_t - r.enqueue_t) * 1e3, 0.0),
-                batch_n=pending.n, serve_size=self.model_size))
+                batch_n=pending.n, serve_size=pending.serve_size))
         return results
 
     def _simulate(self, r: InferenceRequest) -> EngineResult:
@@ -469,6 +662,8 @@ class InferenceEngine:
             "simulation": str(self.simulation).lower(),
             "inferences": str(self.inference_count.value),
             "dropped": str(self.frames_dropped.value),
+            "oversized": str(self.frames_oversized.value),
+            "errors": str(self.error_count.value),
             "pipeline_avg_ms": f"{lat['avg_ms']:.2f}",
             "pipeline_p99_ms": f"{lat['p99_ms']:.2f}",
             "e2e_avg_ms": f"{e2e['avg_ms']:.2f}",
@@ -476,3 +671,47 @@ class InferenceEngine:
             "avg_batch": f"{self.batch_sizes.snapshot()['avg_ms']:.1f}",
             "warmed": str(self.warmed).lower(),
         }
+
+
+class SimulationEngine(InferenceEngine):
+    """Serves random detections whether or not a model file exists (the
+    reference's simulation mode as a selectable engine,
+    onnx_engine.cpp:1133-1177, inference_engine.h:45-103). Loads no model
+    and places nothing on the device; for protocol and load tests."""
+
+    _always_simulate = True
+
+    def maybe_reload(self) -> bool:  # a model appearing must not flip modes
+        return False
+
+
+# Engine registry under the JAX package's names (reference
+# inference_engine.h:45-103): "onnx", the reference's default config value,
+# and "jax" both select the real engine, so existing config files serve
+# through the port's kernels unchanged.
+ENGINE_REGISTRY: Dict[str, type] = {
+    "jax": InferenceEngine,
+    "onnx": InferenceEngine,
+    "simulation": SimulationEngine,
+}
+
+
+def register_engine(name: str):
+    """Class decorator registering a custom engine under `name`."""
+    def deco(cls):
+        ENGINE_REGISTRY[name] = cls
+        return cls
+    return deco
+
+
+def create_engine(config: ServerConfig, **kwargs) -> InferenceEngine:
+    """The engine `config.inference_engine` names; an unknown name falls
+    back to the default engine with a warning (reference
+    server/main.cpp:226-240). kwargs (e.g. device) go to the engine."""
+    name = (config.inference_engine or "jax").strip().lower()
+    cls = ENGINE_REGISTRY.get(name)
+    if cls is None:
+        log.warning("unknown inference_engine %r; using the default engine",
+                    name)
+        cls = InferenceEngine
+    return cls(config, **kwargs)
