@@ -38,25 +38,48 @@ and the script exits non-zero:
    time by kernel (torch.profiler) and the idle share; at batch 8 also
    each port kernel's device time inside the step, the kernels the step
    launches, and the device time and kernels of its NMS stage.
-5. server: the port's DetectionServer in this process on the card, with
-   the deployed config (free loopback ports, warmup, no device frame
-   cache), driven over loopback UDP by the port's SimClient: 8 clients
-   handshake and stream raw 160x120 frames at 60 fps for 4 s from client
-   threads. Gates: every client gets results; frames sent = results +
-   the drops /statusz counts (engine drops and the kernel's receive-buffer
-   drops), short by at most SERVER_SLACK frames; each kernel's launch count
-   rose during the load (the 1x1 GEMM on the tensor cores); GET /statusz
-   answers 200 with the engine's status; the native codec served. Then a
-   second server on the same engine with tracking off serves 8 frames one
-   at a time, each result equal to engine.infer_batch on the same frame
-   through a fresh adapter (counts, classes and ids equal; boxes and
-   confidences within 1e-3); without cv2 a JPEG keyframe raises
-   bad_packets and the server keeps serving. Printed, not gated: the
-   server's detect latency p50 and p99, results a second, batch sizes, the
-   device idle share during the load (torch.profiler), beside the card's
-   name and power limit; the load's launches on a `server kernels:` line.
-6. report: a `kernels:` line, one JSON line of kernel numbers, and the
-   result line `{"ok": true, "device": {...}}` last.
+5. frame cache: the port's DeviceFrameCache on the card at the deployed
+   geometry (10 slots of 1080x1920): 8 clients' 720x1280 keyframes, then
+   in one flush three overlapping ROIs of one slot, an ROI at a frame's
+   corner and a full-frame ROI; a slot frozen by a shed; a slot released
+   and reused. After each step the card's cache must equal, byte for byte,
+   the same writes composited on the host in NumPy. Then
+   dispatch_from_cache at batch 8 (real weights) must equal, to the last
+   bit, dispatch on the composited frames (both at the 1080x1920 bucket),
+   with every kernel's count reset just before and read just after, each
+   > 0; it must return with the stream still busy (a torch.cuda._sleep
+   queued before it). Printed: the flush's host and device time for 1, 8
+   and 64 ROI writes and 1 and 8 keyframes; the lock hold of the server's
+   flush (8 keyframes of 160x120 and the gather); the cached step (gather
+   + step at 1080x1920) beside the hosted step at 608x800, wall and device
+   busy, at batch 1/2/4/8; the letterbox's device time at both buckets.
+6. server: the port's DetectionServer in this process on the card, with
+   the deployed config (free loopback ports, warmup), driven over loopback
+   UDP by the port's SimClient: 8 clients handshake and stream raw 160x120
+   frames at 60 fps for 4 s from client threads; twice, first with the
+   device frame cache (the default: every frame is written to the cache
+   and every batch gathered out of it), then without it. Gates, each run:
+   every client gets results; frames sent = results + the drops /statusz
+   counts (engine drops and the kernel's receive-buffer drops), short by
+   at most SERVER_SLACK frames; each kernel's launch count rose during the
+   load (the 1x1 GEMM on the tensor cores); GET /statusz answers 200 with
+   the engine's status, and with the cache its frame_cache shows one slot
+   a client during the load and none after the clients left; the native
+   codec served. Then a server on the same engine with tracking off,
+   without the cache, serves 8 raw frames one at a time, each result equal
+   to engine.infer_batch on the same frame through a fresh adapter (counts,
+   classes and ids equal; boxes and confidences within 1e-3); without cv2
+   a JPEG keyframe raises bad_packets and the server keeps serving. And a
+   server with the cache serves the 8 raw frames and, with cv2, a JPEG
+   keyframe and an ROI update, each equal to engine.infer_batch_cached on
+   the frame composited on the host. Printed, not gated: each load's detect
+   latency p50 and p99, results a second, batch sizes, the host time of
+   the step launch and (with the cache) of the lock hold, the device idle
+   share (torch.profiler), beside the card's name and power limit; each
+   load's launches on a `server ... kernels:` line.
+7. report: a `kernels:` line, one JSON line of kernel numbers (launches on
+   the main path, and by path: main, frame cache, each server load), and
+   the result line `{"ok": true, "device": {...}}` last.
 """
 
 from __future__ import annotations
@@ -120,6 +143,9 @@ SERVER_FPS = 60.0
 SERVER_SECONDS = 4.0
 SERVER_FRAME = (160, 120)
 SERVER_SLACK = SERVER_CLIENTS
+# Frame cache phase: the clients' frames (h, w), large enough that dispatch
+# also takes the cache's bucket (1080x1920), so both run the same step.
+CACHE_FRAME = (720, 1280)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -748,29 +774,251 @@ def reset_launch_counts() -> None:
     conv1x1_cuda.launches_by_route = {r: 0 for r in conv1x1_cuda.ROUTES}
 
 
-def server_phase(torch, device: str, smi_line: str) -> dict:
-    """Phase 5 (see the module docstring). Returns the load's numbers and
-    the launches it made."""
+class HostComposite:
+    """The frames a DeviceFrameCache should hold, composited on the host in
+    NumPy from the same writes: a keyframe zeroes its slot and fills its
+    top-left (h, w); an ROI pastes over the slot's frame, in order."""
+
+    def __init__(self, cache) -> None:
+        self.cache = cache
+        self.frames = np.zeros(tuple(cache._cache.shape), np.uint8)
+        self.dims = {}
+
+    def keyframe(self, cid: int, frame: np.ndarray) -> None:
+        require(self.cache.write_keyframe(cid, frame),
+                f"keyframe of client {cid} refused")
+        slot = self.cache.slot(cid)
+        h, w = frame.shape[:2]
+        self.frames[slot] = 0
+        self.frames[slot, :h, :w] = frame
+        self.dims[cid] = (h, w)
+
+    def roi(self, cid: int, region: np.ndarray, x: int, y: int,
+            applied: bool = True) -> None:
+        require(self.cache.write_roi(cid, region, x, y),
+                f"ROI of client {cid} at ({x}, {y}) refused")
+        if applied:
+            rh, rw = region.shape[:2]
+            self.frames[self.cache.slot(cid), y:y + rh, x:x + rw] = region
+
+    def check(self, torch, what: str) -> None:
+        self.cache.run_locked(lambda c: c)
+        got = self.cache._cache.cpu().numpy()
+        bad = int((got != self.frames).any(axis=-1).sum())
+        require(bad == 0, f"frame cache after {what}: {bad} pixels differ "
+                          "from the host composite")
+
+
+def flush_ms(torch, cache, write) -> tuple:
+    """(host ms, device ms) of one flush of what `write()` queues: the
+    host time of run_locked (it does not wait for the device), and CUDA
+    events around it, synchronized (the uploads and pastes on the card)."""
+    cache.run_locked(lambda c: c)
+    torch.cuda.synchronize()
+    write()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    t0 = time.perf_counter()
+    cache.run_locked(lambda c: c)
+    host = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return host, start.elapsed_time(end)
+
+
+def frame_cache_phase(torch, engine, cfg, smi_line: str) -> dict:
+    """Phase 5 (see the module docstring). Returns the launches of the
+    cached batch-8 dispatch and the timings printed."""
+    from zero_latency_yolo_tpu_torch.ops.preprocess import letterbox_batch_mxu
+    from zero_latency_yolo_tpu_torch.ops.roi import DeviceFrameCache
+    from zero_latency_yolo_tpu_torch.runtime.engine import InferenceRequest
+    max_h = max(b[0] for b in cfg.tpu.frame_buckets)
+    max_w = max(b[1] for b in cfg.tpu.frame_buckets)
+    cache = DeviceFrameCache(cfg.max_clients, max_h, max_w, device=DEVICE)
+    comp = HostComposite(cache)
+    rng = np.random.default_rng(8)
+    fh, fw = CACHE_FRAME
+    # Eight clients' keyframes, then their ROI updates in one flush: three
+    # overlapping ROIs of client 1, an ROI at the corner of client 2's
+    # frame, a full-frame ROI of client 3, one small ROI each for 4..8.
+    for cid in range(1, 9):
+        comp.keyframe(cid, synthetic_frame(fw, fh, seed=60 + cid, t=0.3 * cid))
+    comp.check(torch, "8 keyframes")
+    for x, y in [(100, 80), (140, 100), (120, 60)]:
+        comp.roi(1, rng.integers(0, 256, (96, 160, 3), dtype=np.uint8), x, y)
+    comp.roi(2, rng.integers(0, 256, (40, 56, 3), dtype=np.uint8),
+             fw - 56, fh - 40)
+    comp.roi(3, synthetic_frame(fw, fh, seed=90), 0, 0)
+    for cid in range(4, 9):
+        comp.roi(cid, rng.integers(0, 256, (16, 16, 3), dtype=np.uint8),
+                 8 * cid, 4 * cid)
+    comp.check(torch, "overlapping, edge and full-frame ROIs")
+    # A shed-frozen slot: client 9 floods past the pending bound; all its
+    # queued ROIs are shed, the slot freezes and keeps its keyframe.
+    comp.keyframe(9, synthetic_frame(640, 360, seed=99))
+    comp.check(torch, "client 9's keyframe")
+    bound, cache._max_pending = cache._max_pending, 4
+    for i in range(5):
+        comp.roi(9, rng.integers(0, 256, (32, 32, 3), dtype=np.uint8),
+                 4 * i, 4 * i, applied=False)
+    cache._max_pending = bound
+    frozen = cache.drain_frozen()
+    comp.roi(9, rng.integers(0, 256, (8, 8, 3), dtype=np.uint8), 0, 0,
+             applied=False)  # frozen: accepted and shed
+    require(frozen == [9] and cache.frozen_clients() == [9],
+            f"shed froze {frozen}, not client 9")
+    comp.check(torch, "a shed-frozen slot")
+    # Release, then a new client reuses the slot.
+    comp.keyframe(10, synthetic_frame(800, 600, seed=10))
+    comp.check(torch, "client 10's keyframe")
+    slot10 = cache.slot(10)
+    cache.release(10)
+    comp.keyframe(11, synthetic_frame(320, 240, seed=11))
+    require(cache.slot(11) == slot10, "the released slot was not reused")
+    comp.check(torch, "a release and the slot's reuse")
+    print(f"frame cache on the card: {cache.num_slots} slots of {max_h}x"
+          f"{max_w}; keyframes, overlapping and edge ROIs, a shed-frozen "
+          f"slot and a reused slot byte-equal to the host composite "
+          f"(flushes {cache.flushes}, writes {cache.writes_flushed}, shed "
+          f"{cache.writes_shed})", flush=True)
+
+    # dispatch_from_cache at batch 8 against dispatch on the composited
+    # frames: same engine, batch and bucket (fh x fw lands in max_h x max_w),
+    # so the packed outputs must be equal to the last bit.
+    ids = list(range(1, 9))
+    reqs = [InferenceRequest(client_id=c, frame_id=c, timestamp=c, width=fw,
+                             height=fh, data=comp.frames[cache.slot(c), :fh,
+                                                         :fw].copy())
+            for c in ids]
+    want = engine.dispatch(reqs)
+    want.event.synchronize()
+    reset_launch_counts()
+    got = cache.dispatch_with(
+        lambda c, s, h, w: engine.dispatch_from_cache(reqs, c, s, h, w), ids)
+    got.event.synchronize()
+    launches = launch_counts()
+    require(want.staging_key[1:] == (max_h, max_w),
+            f"dispatch picked the bucket {want.staging_key[1:]}")
+    require(np.array_equal(got.host.numpy(), want.host.numpy()),
+            "dispatch_from_cache differs from dispatch on the composited "
+            "frames")
+    n_det = [len(r.detections) for r in engine.complete(got)]
+    engine.complete(want)
+    require(all(launches[k] > 0 for k in KERNELS),
+            f"a kernel was not launched by dispatch_from_cache: {launches}")
+    print(f"dispatch_from_cache batch 8 ({fh}x{fw} frames in the {max_h}x"
+          f"{max_w} cache) equal to the last bit to dispatch on the "
+          f"composited frames; detections {n_det}; launches {launches}",
+          flush=True)
+    # It returns with the stream still busy.
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9))
+    t0 = time.perf_counter()
+    pend = cache.dispatch_with(
+        lambda c, s, h, w: engine.dispatch_from_cache(reqs, c, s, h, w), ids)
+    host_s = time.perf_counter() - t0
+    busy = not torch.cuda.current_stream().query()
+    engine.complete(pend)
+    require(busy, f"dispatch_from_cache returned with the stream idle "
+                  f"({host_s:.3f} s)")
+    print(f"dispatch_from_cache returned in {1e3 * host_s:.2f} ms with the "
+          "stream still busy", flush=True)
+
+    # Flush times by write count (64x64 ROIs; keyframes of fh x fw).
+    times = {}
+    region = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    for n in (1, 8, 64):
+        times[f"roi_{n}"] = flush_ms(torch, cache, lambda n=n: [
+            cache.write_roi(ids[i % 8], region, 4 * (i % 16), 4 * (i // 16))
+            for i in range(n)])
+    for n in (1, 8):
+        times[f"keyframe_{n}"] = flush_ms(torch, cache, lambda n=n: [
+            cache.write_keyframe(ids[i], reqs[i].data) for i in range(n)])
+    print(f"flush on {smi_line}, host ms / device ms: " + ", ".join(
+        f"{k} {h:.3f} / {d:.3f}" for k, (h, d) in times.items()), flush=True)
+    # What the batcher holds the cache lock for in the server phase's load,
+    # in this quiet process: 8 keyframes of the clients' raw frames flushed
+    # and the batch-8 gather.
+    small, holds = server_frames(), []
+    for _ in range(12):
+        for i, c in enumerate(ids):
+            cache.write_keyframe(c, small[i])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache.dispatch_with(engine.gather_from_cache, ids)
+        holds.append((time.perf_counter() - t0) * 1e3)
+    hold_ms = float(np.median(holds[2:]))
+    print(f"cache lock hold, quiet: 8 keyframes of {SERVER_FRAME[0]}x"
+          f"{SERVER_FRAME[1]} flushed and the batch-8 gather, host ms p50 "
+          f"{hold_ms:.3f} (max {max(holds[2:]):.3f})", flush=True)
+
+    # The cached step (gather + step at the cache's bucket) beside the
+    # hosted step at the bucket raw 160x120 frames take (608x800).
+    args = (engine._class_weights, cfg.confidence_threshold,
+            cfg.nms_threshold)
+    small = min(engine.frame_buckets, key=lambda b: b[0] * b[1])
+    steps = {}
+    for b in engine.batch_buckets:
+        shw = torch.tensor([[cache.slot(c) for c in ids[:b]], [fh] * b,
+                            [fw] * b], dtype=torch.int32, device=DEVICE)
+        frames = torch.zeros((b,) + tuple(small) + (3,), dtype=torch.uint8,
+                             device=DEVICE)
+        frames[:, :SERVER_FRAME[1], :SERVER_FRAME[0]] = torch.from_numpy(
+            server_frames()[0]).to(DEVICE)
+        hs = torch.full((b,), SERVER_FRAME[1], dtype=torch.int32,
+                        device=DEVICE)
+        ws = torch.full((b,), SERVER_FRAME[0], dtype=torch.int32,
+                        device=DEVICE)
+        cached = engine.get_step_cached(b, (max_h, max_w))
+        hosted = engine.get_step(b, small)
+        row = {}
+        for name, fn in (
+                ("cached", lambda: cached(engine._params, cache._cache, shw,
+                                          *args)),
+                ("hosted", lambda: hosted(engine._params, frames, hs, ws,
+                                          *args))):
+            wall = wall_ms(torch, fn)
+            prof, _ = profile_step(torch, fn)
+            row[name] = (wall, prof["busy_ms"])
+        steps[b] = row
+        print(f"step batch {b} on {smi_line}: cached (gather + step at "
+              f"{max_h}x{max_w}) wall {row['cached'][0]:.3f} ms, device busy "
+              f"{row['cached'][1]:.3f} ms; hosted (step at {small[0]}x"
+              f"{small[1]}) wall {row['hosted'][0]:.3f} ms, device busy "
+              f"{row['hosted'][1]:.3f} ms", flush=True)
+    lb = {}
+    for bk in (tuple(small), (max_h, max_w)):
+        x = torch.zeros((8,) + bk + (3,), dtype=torch.uint8, device=DEVICE)
+        h8 = torch.full((8,), SERVER_FRAME[1], dtype=torch.int32,
+                        device=DEVICE)
+        w8 = torch.full((8,), SERVER_FRAME[0], dtype=torch.int32,
+                        device=DEVICE)
+        lb[bk] = time_ms(torch, lambda: letterbox_batch_mxu(
+            x, h8, w8, engine.model_size, engine.dtype))
+    print("letterbox device time, batch 8 (CUDA events): " + ", ".join(
+        f"{bk[0]}x{bk[1]} {ms:.4f} ms" for bk, ms in lb.items()), flush=True)
+    return dict(launches=launches, flush_ms=times, hold_ms=hold_ms,
+                steps=steps, letterbox_ms=lb)
+
+
+def server_load(torch, device: str, smi_line: str, cache: bool,
+                engine=None) -> dict:
+    """One load of the server phase (see the module docstring) on a fresh
+    DetectionServer, with the device frame cache or without it, and its
+    gates. Returns the load's numbers, its launches and the engine."""
     from zero_latency_yolo_tpu_torch.bench_server import (
         ServerThread, deployed_config, http_get, run_load)
-    from zero_latency_yolo_tpu_torch.protocol import FrameDataPacket, native
-    from zero_latency_yolo_tpu_torch.runtime import frames as frames_mod
-    from zero_latency_yolo_tpu_torch.runtime.adapters import get_adapter
-    from zero_latency_yolo_tpu_torch.runtime.engine import InferenceRequest
     from zero_latency_yolo_tpu_torch.runtime.server import DetectionServer
-    from zero_latency_yolo_tpu_torch.runtime.simulator import SimClient
-
-    codec = (f"native ({native._LIB._name})" if native.HAVE_NATIVE
-             else "pure Python")
-    has_cv2 = frames_mod.cv2 is not None
-    print(f"server codec: {codec}; cv2 present: {has_cv2}", flush=True)
-    require(native.HAVE_NATIVE, "the native codec did not build")
+    label = "cached" if cache else "hosted (no cache)"
     w, h = SERVER_FRAME
     cfg = deployed_config(tracking=True)
+    web = cfg.network.web_port
     t_start = time.perf_counter()
-    srv = ServerThread(DetectionServer(cfg, device=device)).start(warmup=True)
+    srv = ServerThread(DetectionServer(
+        cfg, engine=engine, device=device,
+        use_device_cache=cache)).start(warmup=True)
     server, engine = srv.server, srv.server.engine
-    print(f"server up on udp/{server.port} (web {cfg.network.web_port}) in "
+    print(f"server {label} up on udp/{server.port} (web {web}) in "
           f"{time.perf_counter() - t_start:.2f} s, warmup included; engine "
           f"{engine.status()['engine']} on {engine.device}, simulation "
           f"{engine.simulation}", flush=True)
@@ -778,26 +1026,49 @@ def server_phase(torch, device: str, smi_line: str) -> dict:
         require(not engine.simulation, "server engine in simulation mode")
         reset_launch_counts()
         load = run_load(torch, server, "threads", SERVER_CLIENTS, SERVER_FPS,
-                        SERVER_SECONDS)
+                        SERVER_SECONDS, during=lambda: http_get(web, "/statusz"))
         launches = launch_counts()
-        code, body = http_get(cfg.network.web_port, "/statusz")
+        code, body = http_get(web, "/statusz")
         require(code == 200, f"GET /statusz answered {code}")
         st = json.loads(body)
+        # After the clients' DISCONNECT every cache slot is released.
+        deadline = time.perf_counter() + 10
+        while cache and (st["frame_cache"]["slots_used"] != 0
+                         and time.perf_counter() < deadline):
+            time.sleep(0.05)
+            st = json.loads(http_get(web, "/statusz")[1])
     finally:
         srv.stop()
+    code, body = load["during"]
+    require(code == 200, f"GET /statusz during the load answered {code}")
+    fc_during, fc_after = json.loads(body)["frame_cache"], st["frame_cache"]
+    print(f"server {label} statusz frame_cache during the load {fc_during}; "
+          f"after the clients left {fc_after}", flush=True)
+    if cache:
+        require(fc_during["slots_used"] == SERVER_CLIENTS,
+                f"slots used during the load: {fc_during['slots_used']}, "
+                f"not the {SERVER_CLIENTS} clients")
+        require(fc_after["slots_used"] == 0,
+                f"{fc_after['slots_used']} cache slots still used after "
+                "every client left")
+        require(fc_after["cache_rejects"] == 0 and fc_after["writes_shed"] == 0,
+                f"the cache refused or shed writes: {fc_after}")
+    else:
+        require(fc_during is None and fc_after is None,
+                "a frame cache in the server without one")
     n_sent, results = sum(load["sent"]), load["results"]
     unaccounted = (n_sent - sum(results) - load["engine_drops"]
                    - load["kernel_drops"])
-    print(f"server load: {SERVER_CLIENTS} clients (threads of this process) "
-          f"x raw {w}x{h} frames at {SERVER_FPS:g} fps for {SERVER_SECONDS:g}"
-          f" s: sent {n_sent}, server received {load['frames_received']}, "
-          f"results {sum(results)} (per client {results}), engine drops "
-          f"{load['engine_drops']}, kernel drops {load['kernel_drops']}, bad "
-          f"packets {load['bad_packets']}; unaccounted {unaccounted} "
-          f"(allowed 0..{SERVER_SLACK}); socket receive buffer "
-          f"{load['rcvbuf']} B; the machine's UDP and IP drop counters over "
-          f"the load {load['net']}", flush=True)
-    print(f"server statusz: engine {st['engine']['engine']} on "
+    print(f"server {label} load: {SERVER_CLIENTS} clients (threads of this "
+          f"process) x raw {w}x{h} frames at {SERVER_FPS:g} fps for "
+          f"{SERVER_SECONDS:g} s: sent {n_sent}, server received "
+          f"{load['frames_received']}, results {sum(results)} (per client "
+          f"{results}), engine drops {load['engine_drops']}, kernel drops "
+          f"{load['kernel_drops']}, bad packets {load['bad_packets']}; "
+          f"unaccounted {unaccounted} (allowed 0..{SERVER_SLACK}); socket "
+          f"receive buffer {load['rcvbuf']} B; the machine's UDP and IP drop "
+          f"counters over the load {load['net']}", flush=True)
+    print(f"server {label} statusz: engine {st['engine']['engine']} on "
           f"{st['engine']['device']}, inferences {st['engine']['inferences']}, "
           f"errors {st['engine']['errors']}, avg batch "
           f"{st['engine']['avg_batch']}", flush=True)
@@ -809,65 +1080,117 @@ def server_phase(torch, device: str, smi_line: str) -> dict:
             and st["engine"]["device"].startswith(device)
             and st["engine"]["errors"] == "0",
             f"statusz engine status: {st['engine']}")
-    print("server kernels: " + ", ".join(
+    print(f"server {label} kernels: " + ", ".join(
         f"{k} launches={v}" for k, v in launches.items()), flush=True)
     require(all(launches[k] > 0 for k in KERNELS),
             f"a kernel was not launched while serving: {launches}")
     require(launches["conv1x1_wgmma"] == launches["conv1x1_bias_act"],
             f"bf16 1x1 convs off the tensor cores while serving: {launches}")
     idle = load["idle_share"]
-    print(f"server on {smi_line}: detect latency p50 {load['p50_ms']:.3f} ms,"
-          f" p99 {load['p99_ms']:.3f} ms (last {load['latency_samples']} "
-          f"results, arrival to result sent); served "
-          f"{load['results_per_s']:.1f} results/s; batch sizes "
-          f"{load['batch_sizes']}; engine.dispatch host ms p50 "
-          f"{load['dispatch_ms_p50']:.2f}, p90 {load['dispatch_ms_p90']:.2f}; "
-          f"device busy {load['busy_ms']:.1f} ms of {load['wall_ms']:.1f} ms, "
-          f"idle share {'not measured' if idle is None else f'{idle:.3f}'} "
-          "(profiler, last second of the load)", flush=True)
+    lock = (f"; cache lock held ms p50 {load['lock_ms_p50']:.3f}, p90 "
+            f"{load['lock_ms_p90']:.3f} (flush + gather)" if cache else "")
+    print(f"server {label} on {smi_line}: detect latency p50 "
+          f"{load['p50_ms']:.3f} ms, p99 {load['p99_ms']:.3f} ms (last "
+          f"{load['latency_samples']} results, arrival to result sent); "
+          f"served {load['results_per_s']:.1f} results/s; batch sizes "
+          f"{load['batch_sizes']}; step launch host ms "
+          f"({'dispatch_gathered' if cache else 'engine.dispatch'}) p50 "
+          f"{load['dispatch_ms_p50']:.2f}, p90 {load['dispatch_ms_p90']:.2f}"
+          f"{lock}; device busy {load['busy_ms']:.1f} ms of "
+          f"{load['wall_ms']:.1f} ms, idle share "
+          f"{'not measured' if idle is None else f'{idle:.3f}'} (profiler, "
+          "last second of the load)", flush=True)
+    return dict(load, launches=launches, engine=engine)
 
-    # Exactness: tracking off, one frame at a time, against infer_batch
-    # through a fresh adapter of the same config.
+
+def _served(c, got: list, send) -> None:
+    """Send one frame with `send()`, wait for its result, append it."""
+    fid = send()
+    res = c.wait_results(len(got) + 1, timeout=30)
+    require(len(res) == len(got) + 1 and res[-1].frame_id == fid,
+            f"frame {fid} unanswered")
+    got.append(res[-1])
+
+
+def server_exactness(torch, engine, device: str, cache: bool,
+                     has_cv2: bool) -> None:
+    """A second server on the same engine, tracking off, serves frames one
+    at a time; each result equals the engine on the frame the server
+    served (through a fresh adapter; counts, classes and ids equal, boxes
+    and confidences within 1e-3). Without the cache: 8 raw frames against
+    infer_batch, then a JPEG keyframe (served with cv2, else a bad packet)
+    and a raw frame. With the cache: the 8 raw frames, and with cv2 a JPEG
+    keyframe and an ROI update, against infer_batch_cached on the frame
+    composited on the host (the cache's bucket, batch 1)."""
+    from zero_latency_yolo_tpu_torch.bench_server import (
+        ServerThread, deployed_config)
+    from zero_latency_yolo_tpu_torch.protocol import FrameDataPacket
+    from zero_latency_yolo_tpu_torch.runtime.adapters import get_adapter
+    from zero_latency_yolo_tpu_torch.runtime.engine import InferenceRequest
+    from zero_latency_yolo_tpu_torch.runtime.frames import (
+        decode_frame_payload, encode_jpeg)
+    from zero_latency_yolo_tpu_torch.runtime.server import DetectionServer
+    from zero_latency_yolo_tpu_torch.runtime.simulator import SimClient
+    label = "cached" if cache else "hosted (no cache)"
+    w, h = SERVER_FRAME
     cfg2 = deployed_config(tracking=False)
-    srv2 = ServerThread(DetectionServer(cfg2, engine=engine,
-                                        device=device)).start(warmup=False)
+    srv2 = ServerThread(DetectionServer(
+        cfg2, engine=engine, device=device,
+        use_device_cache=cache)).start(warmup=False)
     server2 = srv2.server
     frames = server_frames()
+    served = list(frames)  # the frame each result was computed on
     c = SimClient(("127.0.0.1", server2.port), screen_width=w,
                   screen_height=h)
+    got = []
     try:
         c.connect()
         c.start_receiver()
-        got = []
         for f in frames:
-            fid = c.send_raw_frame(f)
-            res = c.wait_results(len(got) + 1, timeout=30)
-            require(len(res) == len(got) + 1 and res[-1].frame_id == fid,
-                    f"frame {fid} unanswered")
-            got.append(res[-1])
-        # A JPEG keyframe: without cv2 a bad packet; serving goes on.
-        bad0 = server2.bad_packets.value
-        if has_cv2:
-            c.send_jpeg_keyframe(frames[0])
+            _served(c, got, lambda f=f: c.send_raw_frame(f))
+        if not cache:
+            # A JPEG keyframe: without cv2 a bad packet; serving goes on.
+            bad0 = server2.bad_packets.value
+            if has_cv2:
+                c.send_jpeg_keyframe(frames[0])
+            else:
+                c._send(FrameDataPacket(
+                    frame_id=10 ** 6, frame_timestamp=0, width=w, height=h,
+                    keyframe=True,
+                    data=b"\xff\xd8\xff\xe0" + bytes(4096)).serialize())
+                deadline = time.perf_counter() + 10
+                while (server2.bad_packets.value == bad0
+                       and time.perf_counter() < deadline):
+                    time.sleep(0.02)
+                require(server2.bad_packets.value == bad0 + 1,
+                        "a JPEG keyframe without cv2 did not count a bad "
+                        "packet")
+            fid = c.send_raw_frame(frames[0])
+            res = c.wait_results(len(got) + 1 + has_cv2, timeout=30)
+            require(res and res[-1].frame_id == fid,
+                    "the server stopped serving after the JPEG keyframe")
+            print(f"server JPEG keyframe (cv2 "
+                  f"{'present: served' if has_cv2 else 'absent: refused'}): "
+                  f"bad packets {bad0} -> {server2.bad_packets.value}; the "
+                  "next raw frame was served", flush=True)
+        elif has_cv2:
+            # A JPEG keyframe, then an ROI update over it, through the
+            # cache; the host composite decodes the same JPEG bytes.
+            kf = decode_frame_payload(encode_jpeg(frames[1], 85), w, h).pixels
+            _served(c, got, lambda: c.send_jpeg_keyframe(frames[1]))
+            served.append(kf)
+            x, y, rw, rh = 40, 30, 64, 48
+            region = np.ascontiguousarray(frames[2][y:y + rh, x:x + rw])
+            comp = kf.copy()
+            comp[y:y + rh, x:x + rw] = decode_frame_payload(
+                encode_jpeg(region, 85), rw, rh).pixels
+            _served(c, got, lambda: c.send_roi_update(region, x=x, y=y))
+            served.append(comp)
+            print("server cached: a JPEG keyframe and an ROI update over "
+                  "the wire served", flush=True)
         else:
-            c._send(FrameDataPacket(
-                frame_id=10 ** 6, frame_timestamp=0, width=w, height=h,
-                keyframe=True,
-                data=b"\xff\xd8\xff\xe0" + bytes(4096)).serialize())
-            deadline = time.perf_counter() + 10
-            while (server2.bad_packets.value == bad0
-                   and time.perf_counter() < deadline):
-                time.sleep(0.02)
-            require(server2.bad_packets.value == bad0 + 1,
-                    "a JPEG keyframe without cv2 did not count a bad packet")
-        fid = c.send_raw_frame(frames[0])
-        res = c.wait_results(len(got) + 1 + has_cv2, timeout=30)
-        require(res and res[-1].frame_id == fid,
-                "the server stopped serving after the JPEG keyframe")
-        print(f"server JPEG keyframe (cv2 "
-              f"{'present: served' if has_cv2 else 'absent: refused'}): bad "
-              f"packets {bad0} -> {server2.bad_packets.value}; the next raw "
-              "frame was served", flush=True)
+            print("server cached: cv2 absent, the JPEG keyframe and ROI "
+                  "update over the wire not run", flush=True)
     finally:
         c.stop()
         srv2.stop()
@@ -878,31 +1201,61 @@ def server_phase(torch, device: str, smi_line: str) -> dict:
     adapter.register_client(1, w, h, 1)
     worst = 0.0
     counts = []
-    for i, (f, r) in enumerate(zip(frames, got)):
-        want = engine.infer_batch([InferenceRequest(
-            client_id=1, frame_id=r.frame_id, timestamp=r.frame_timestamp,
-            width=w, height=h, data=f)])[0].detections
-        want = adapter.process_detections(1, want)[:32]
+    for i, (f, r) in enumerate(zip(served, got)):
+        req = InferenceRequest(client_id=1, frame_id=r.frame_id,
+                               timestamp=r.frame_timestamp, width=w, height=h,
+                               data=f)
+        if cache:
+            bh = max(b[0] for b in engine.frame_buckets)
+            bw = max(b[1] for b in engine.frame_buckets)
+            slot = torch.zeros((1, bh, bw, 3), dtype=torch.uint8,
+                               device=device)
+            slot[0, :h, :w] = torch.from_numpy(f).to(device)
+            req.data = None
+            want = engine.infer_batch_cached([req], slot, np.array([h]),
+                                             np.array([w]))
+        else:
+            want = engine.infer_batch([req])
+        want = adapter.process_detections(1, want[0].detections)[:32]
         counts.append(len(want))
         require(len(r.detections) == len(want)
                 and [d.class_id for d in r.detections]
                 == [d.class_id for d in want]
                 and [d.track_id for d in r.detections]
                 == [d.track_id for d in want],
-                f"server frame {i}: {len(r.detections)} detections vs "
-                f"infer_batch {len(want)}, or classes or ids differ")
+                f"server {label} frame {i}: {len(r.detections)} detections "
+                f"vs the engine's {len(want)}, or classes or ids differ")
         for a, b in zip(r.detections, want):
             worst = max(worst, *(abs(getattr(a, k) - getattr(b, k)) for k in
                                  ("x", "y", "width", "height", "confidence")))
-    print(f"server exactness: 8 frames one at a time, tracking off, against "
-          f"engine.infer_batch + a fresh adapter: counts {counts} equal, "
-          f"classes and ids equal, max box/confidence difference "
-          f"{worst:.3g} (tolerance 1e-3)", flush=True)
-    require(worst <= 1e-3, "server results differ from infer_batch by more "
-                           "than 1e-3")
+    ref = "infer_batch_cached" if cache else "infer_batch"
+    print(f"server {label} exactness: {len(got)} frames one at a time, "
+          f"tracking off, against engine.{ref} + a fresh adapter: counts "
+          f"{counts} equal, classes and ids equal, max box/confidence "
+          f"difference {worst:.3g} (tolerance 1e-3)", flush=True)
+    require(worst <= 1e-3, f"server {label} results differ from {ref} by "
+                           "more than 1e-3")
     require(sum(counts) > 0, "exactness check vacuous: no detections")
-    return dict(load, launches=launches)
 
+
+def server_phase(torch, device: str, smi_line: str) -> dict:
+    """Phase 6 (see the module docstring): the load on the cached default
+    server, then on the server without the cache, then the exactness of
+    each. Returns both loads' numbers and launches."""
+    from zero_latency_yolo_tpu_torch.protocol import native
+    from zero_latency_yolo_tpu_torch.runtime import frames as frames_mod
+    codec = (f"native ({native._LIB._name})" if native.HAVE_NATIVE
+             else "pure Python")
+    has_cv2 = frames_mod.cv2 is not None
+    print(f"server codec: {codec}; cv2 present: {has_cv2}", flush=True)
+    require(native.HAVE_NATIVE, "the native codec did not build")
+    cached = server_load(torch, device, smi_line, cache=True)
+    engine = cached.pop("engine")
+    hosted = server_load(torch, device, smi_line, cache=False, engine=engine)
+    hosted.pop("engine")
+    server_exactness(torch, engine, device, False, has_cv2)
+    server_exactness(torch, engine, device, True, has_cv2)
+    return {"cached": cached, "hosted": hosted}
 
 def main() -> None:
     with Phase("device"):
@@ -1117,14 +1470,23 @@ def main() -> None:
                   f"{pwall:.3f} ms), idle share {max(0.0, 1 - busy / wall):.3f}",
                   flush=True)
 
-    with Phase("server"):
-        server_phase(torch, DEVICE, smi_line)
+    with Phase("frame cache"):
+        fc = frame_cache_phase(torch, engine, cfg, smi_line)
 
-    print("kernels: " + ", ".join(f"{n} launches={launches[n]}"
-                                  for n in KERNELS), flush=True)
+    with Phase("server"):
+        srv = server_phase(torch, DEVICE, smi_line)
+
+    by_path = {n: {"main": launches[n], "frame_cache": fc["launches"][n],
+                   "server_cached": srv["cached"]["launches"][n],
+                   "server_hosted": srv["hosted"]["launches"][n]}
+               for n in KERNELS}
+    print("kernels: " + ", ".join(
+        f"{n} launches={launches[n]} (by path {by_path[n]})" for n in KERNELS),
+        flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": report[name]["max_abs_err"],
+         "launches": launches[name], "launches_by_path": by_path[name],
+         "max_abs_err": report[name]["max_abs_err"],
          "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"],
          "bound_ms": report[name]["bound_ms"],
          "bound_by": report[name]["bound_by"],

@@ -7,7 +7,10 @@ dispatch returns before the device has run the step, the step's full f32
 switch holds under PyTorch's default TF32 settings, a pending batch's CUDA
 event says whether the step and its result's copy are done, complete()
 reads the pinned copy without another one, and two batches in flight
-through the ContinuousBatcher both complete, in order.
+through the ContinuousBatcher both complete, in order. The device frame
+cache on the card: dispatch_from_cache returns before the device is done, a
+flush makes no synchronizing call, the cached step equals the hosted one,
+and a write flushed after a dispatch does not reach that dispatch's frames.
 
 Needs an NVIDIA GPU and nvcc: marked `cuda` and skipped elsewhere. This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -240,7 +243,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         nms_cuda.nms_keep(boxes[:, :8:2], classes[:, :4], valid[:, :4], 0.5)
 
 
-def _small_engine(dtype: str):
+def _small_engine(dtype: str, batch_buckets=(2,)):
     """yolov8p at 64 px with NumPy-initialised weights on the card."""
     from zero_latency_yolo_tpu_torch.config import ServerConfig
     from zero_latency_yolo_tpu_torch.models import yolov8 as ym
@@ -250,7 +253,8 @@ def _small_engine(dtype: str):
         "nms_threshold": 0.45,
         "detection": {"model_width": 64, "model_height": 64},
         "tpu": {"variant": "yolov8p", "num_classes": 4, "dtype": dtype,
-                "batch_buckets": [2], "frame_buckets": [[96, 128]],
+                "batch_buckets": list(batch_buckets),
+                "frame_buckets": [[96, 128]],
                 "pre_nms_topk": 64}})
     return InferenceEngine(cfg, params=ym.init_params(0, ym.get_spec(
         "yolov8p", 4)), device="cuda")
@@ -414,3 +418,112 @@ def test_two_batches_in_flight_complete_in_order(dev):
     assert depth[:2] == [1, 2], depth
     assert got == [[1], [2]]
     assert eng.error_count.value == 0
+
+
+def _cached(eng, reqs, seed=0):
+    """A card-resident frame cache of the engine's bucket holding each
+    request's frame (flushed), and the ids of the requests."""
+    from zero_latency_yolo_tpu_torch.ops.roi import DeviceFrameCache
+    cache = DeviceFrameCache(8, 96, 128, device="cuda")
+    for r in reqs:
+        assert cache.write_keyframe(r.client_id, r.data)
+    cache.run_locked(lambda c: c)
+    return cache, [r.client_id for r in reqs]
+
+
+def _from_cache(eng, cache, reqs, ids):
+    return cache.dispatch_with(
+        lambda c, s, h, w: eng.dispatch_from_cache(reqs, c, s, h, w), ids)
+
+
+def _dets(results):
+    return [[(d.class_id, d.x, d.y, d.width, d.height, d.confidence)
+             for d in r.detections] for r in results]
+
+
+def test_dispatch_from_cache_returns_before_the_device_is_done(dev):
+    eng = _small_engine("bfloat16")
+    reqs = _requests(2)
+    cache, ids = _cached(eng, reqs)
+    want = eng.complete(_from_cache(eng, cache, reqs, ids))  # warms all
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9))  # about a second of the GPU's clock
+    t0 = time.perf_counter()
+    pending = _from_cache(eng, cache, reqs, ids)
+    host_s = time.perf_counter() - t0
+    busy = not torch.cuda.current_stream().query()
+    got = eng.complete(pending)
+    assert busy, (f"dispatch_from_cache returned with the stream idle "
+                  f"({host_s:.3f} s)")
+    assert _dets(got) == _dets(want)
+
+
+def test_cache_flush_makes_no_synchronizing_call(dev):
+    """Keyframes and ROI writes flushed under sync debug mode "error": any
+    synchronizing call (a pageable copy, a readback) would raise. The
+    gather and the cached dispatch too."""
+    eng = _small_engine("bfloat16")
+    reqs = _requests(2)
+    cache, ids = _cached(eng, reqs)  # first buffers made outside the check
+    eng.complete(_from_cache(eng, cache, reqs, ids))
+    rng = np.random.default_rng(5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for r in reqs:
+            assert cache.write_keyframe(r.client_id, r.data)
+        for k in range(20):
+            region = rng.integers(0, 256, (8 + k, 16, 3), dtype=np.uint8)
+            assert cache.write_roi(ids[k % 2], region, k, 2 * k)
+        cache.run_locked(lambda c: c)
+        cache.gather(ids)
+        pending = _from_cache(eng, cache, reqs, ids)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(eng.complete(pending)) == 2
+
+
+def test_cached_step_equals_hosted_step_at_batch_8(dev):
+    """Eight frames served from the card's cache and from host staging, on
+    the same engine, batch and bucket: equal to the last bit."""
+    eng = _small_engine("bfloat16", batch_buckets=(8,))
+    eng.update_thresholds(confidence=0.05)
+    reqs = _requests(8, seed=4)
+    cache, ids = _cached(eng, reqs)
+    hosted = eng.complete(eng.dispatch(reqs))
+    cached = eng.complete(_from_cache(eng, cache, reqs, ids))
+    assert sum(len(r.detections) for r in hosted) > 0, "vacuous"
+    assert _dets(cached) == _dets(hosted)
+    # The packed outputs, bit for bit: get_step_cached against get_step.
+    shw = torch.tensor([[cache.slot(i) for i in ids], [96] * 8, [128] * 8],
+                       dtype=torch.int32, device="cuda")
+    args = (eng._class_weights, eng.config.confidence_threshold,
+            eng.config.nms_threshold)
+    a = eng.get_step_cached(8, (96, 128))(eng._params, cache._cache, shw, *args)
+    frames = torch.from_numpy(np.stack([r.data for r in reqs])).cuda()
+    b = eng.get_step(8, (96, 128))(eng._params, frames, shw[1], shw[2], *args)
+    assert torch.equal(a, b)
+
+
+def test_write_after_dispatch_does_not_reach_it(dev):
+    """With the stream held busy: dispatch from the cache, then write a new
+    keyframe to the same slot and flush it. The dispatch serves the old
+    frame (its gather is queued before the write), the next one the new."""
+    eng = _small_engine("float32")
+    eng.update_thresholds(confidence=0.05)
+    old, new = _requests(2, seed=6), _requests(2, seed=7)
+    cache, ids = _cached(eng, old)
+    want_old = eng.complete(eng.dispatch(old))
+    want_new = eng.complete(eng.dispatch(new))
+    assert _dets(want_old) != _dets(want_new)
+    eng.complete(_from_cache(eng, cache, old, ids))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1e9))
+    pending = _from_cache(eng, cache, old, ids)
+    for r in new:
+        assert cache.write_keyframe(r.client_id, r.data)
+    cache.run_locked(lambda c: c)
+    assert not torch.cuda.current_stream().query()  # all still queued
+    assert _dets(eng.complete(pending)) == _dets(want_old)
+    assert _dets(eng.complete(_from_cache(eng, cache, new, ids))) == _dets(
+        want_new)

@@ -1,6 +1,7 @@
 """The engine surface the port's server calls, on the CPU: the registry
 under the JAX package's names, SimulationEngine, the refusals of what is
-not ported (serve-size ladders, adaptive SLO, the device frame cache), hot
+not ported (serve-size ladders, adaptive SLO), warmup with the device frame
+cache, hot
 reload staged on the watcher thread and applied by the dispatch thread, and
 dataset capture through the server. Where the JAX engine has the same
 surface, both are held to the same answers."""
@@ -82,8 +83,17 @@ def test_refusals_of_what_is_not_ported():
     assert eng.effective_serve_size() == eng.effective_serve_size(1000) == 64
     assert not eng.update_adaptive_slo(5.0)
     assert eng.update_adaptive_slo(0.0)
-    with pytest.raises(ValueError, match="frame cache"):
-        eng.warmup(cache=object())
+    # warmup(cache=...) runs: the cache's write path once, then the cached
+    # step under its lock; a keyframe queued before it is flushed first.
+    from zero_latency_yolo_tpu_torch.ops.roi import DeviceFrameCache
+    cache = DeviceFrameCache(2, 96, 96, device="cpu")
+    assert cache.write_keyframe(5, _req().data)
+    locked = []
+    run_locked = cache.run_locked
+    cache.run_locked = lambda fn: locked.append(fn) or run_locked(fn)
+    assert eng.warmup([1, 2], [(96, 96)], cache, 2) >= 0.0 and eng.warmed
+    assert len(locked) == 2 and cache.writes_flushed == 1
+    assert cache.has_frame(5) and cache.flushes == 1
     with pytest.raises(ValueError, match="serve size"):
         eng.dispatch([_req()], size=32)
     req = _req()

@@ -207,13 +207,60 @@ def test_partial_dispatch_failure_keeps_launched_groups():
 
 
 def test_requests_without_pixels_raise():
-    """Frames in the device frame cache (data=None) are not ported: the
-    batch's dispatch raises and counts an error instead of serving."""
+    """A request served from the device frame cache (data=None) with no
+    cache configured raises, with the JAX batcher's message, instead of
+    serving."""
     b = _batcher(max_batch=2)
     req = _req(1, 1)
     req.data = None
-    with pytest.raises(RuntimeError, match="frame cache"):
+    with pytest.raises(RuntimeError, match="no device cache configured"):
         b._dispatch([req])
+
+
+def test_mixed_cached_and_hosted_batch_dispatches_both_groups():
+    """One batch of cached requests (data=None) and hosted ones: the cached
+    group is padded to a batch bucket and served from the cache, the hosted
+    group from its pixels; every request gets its own result, each equal
+    to infer_batch on the same frame."""
+    from zero_latency_yolo_tpu_torch.models.yolov8 import get_spec, init_params
+    from zero_latency_yolo_tpu_torch.ops.roi import DeviceFrameCache
+    eng = InferenceEngine(_cfg(dtype="float32", pre_nms_topk=64),
+                          params=init_params(0, get_spec("yolov8p", 4)),
+                          device="cpu")
+    cache = DeviceFrameCache(4, 96, 96, device="cpu")
+    rng = np.random.default_rng(3)
+    frames = {c: rng.integers(0, 256, (64, 96, 3), np.uint8)
+              for c in (1, 2, 3, 4)}
+    for c in (1, 2, 3):
+        assert cache.write_keyframe(c, frames[c])
+    reqs = [_req(c, 10 + c) for c in (1, 2, 3, 4)]
+    for r in reqs:
+        r.data = frames[r.client_id] if r.client_id == 4 else None
+    b = ContinuousBatcher(eng, lambda r: None, max_batch=4,
+                          device_cache=cache)
+    gathered = []
+    gather = eng.gather_from_cache
+    eng.gather_from_cache = lambda c, s, h, w: gathered.append(
+        list(s)) or gather(c, s, h, w)
+    pend = b._dispatch(reqs)
+    assert [len(p.requests) for p in pend] == [3, 1]
+    slots = [cache.slot(c) for c in (1, 2, 3)]
+    assert gathered == [slots + slots[:1]]  # padded to the bucket 4
+    got = {r.client_id: r for rs in eng.complete_many(pend) for r in rs}
+    assert sorted(got) == [1, 2, 3, 4]
+    for c in (1, 2, 3, 4):
+        want = eng.infer_batch([InferenceRequest(
+            client_id=c, frame_id=10 + c, timestamp=10 + c, width=96,
+            height=64, data=frames[c])])[0]
+        assert got[c].frame_id == 10 + c
+        assert [d.class_id for d in got[c].detections] == [
+            d.class_id for d in want.detections]
+        np.testing.assert_allclose(
+            [[d.x, d.y, d.width, d.height, d.confidence]
+             for d in got[c].detections],
+            [[d.x, d.y, d.width, d.height, d.confidence]
+             for d in want.detections], atol=1e-5)
+    assert eng.error_count.value == 0
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

@@ -1,11 +1,12 @@
 """The PyTorch port's UDP server over loopback, on the CPU.
 
-The simulation-mode cases of tests/test_server_e2e.py that need no device
-frame cache, run on the port's DetectionServer (device="cpu") and driven by
-the port's SimClient; then the slice as a whole against the JAX server
-(`use_device_cache=False`) on the same params and frames, each server driven
-by the other package's client; then the repairs of the engine surface the
-server reads. Ports are found free at run time (test files run in parallel).
+The simulation-mode cases of tests/test_server_e2e.py, run on the port's
+DetectionServer (device="cpu", its device frame cache on the CPU by
+default) and driven by the port's SimClient; then the slice as a whole
+against the JAX server on the same params and frames, each server driven by
+the other package's client, without the device cache and with it on both
+sides; then the repairs of the engine surface the server reads. Ports are
+found free at run time (test files run in parallel).
 """
 
 import asyncio
@@ -98,8 +99,9 @@ def fresh():
     """A server of its own, stopped after the test: fresh(**config)."""
     made = []
 
-    def make(**over):
-        h = ServerHarness(DetectionServer(sim_config(**over), device="cpu"))
+    def make(use_device_cache=True, **over):
+        h = ServerHarness(DetectionServer(sim_config(**over), device="cpu",
+                                          use_device_cache=use_device_cache))
         made.append(h)
         return h.start()
     yield make
@@ -166,9 +168,11 @@ def test_raw_frame_to_detection_result(harness):
         c.stop()
 
 
-def test_roi_update_dropped_without_cache(harness):
-    """A JPEG keyframe is served from host memory; an ROI update, which
-    patches the device frame cache the port has not got, is dropped."""
+def test_roi_update_dropped_without_cache(fresh):
+    """Without the device frame cache (use_device_cache=False, as in the
+    JAX server) a JPEG keyframe is served from host memory and an ROI
+    update, which patches the cached frame, is dropped."""
+    harness = fresh(use_device_cache=False)
     c = _client(harness.port)
     try:
         c.connect()
@@ -182,6 +186,111 @@ def test_roi_update_dropped_without_cache(harness):
         assert harness.status()["frame_cache"] is None
     finally:
         c.stop()
+
+
+def test_jpeg_and_roi_stream(harness):
+    """The default server (device frame cache on) serves a JPEG keyframe
+    and the ROI update after it; the cache holds the client's frame."""
+    c = _client(harness.port)
+    try:
+        c.connect()
+        c.start_receiver()
+        kf_id = c.send_jpeg_keyframe(synthetic_frame(96, 64, seed=2))
+        roi_id = c.send_roi_update(synthetic_frame(32, 16, seed=3), x=8, y=8)
+        # Per-client supersede semantics: when both frames land in the same
+        # batch window, the older one is dropped — but the NEWEST frame must
+        # always be answered.
+        deadline = time.monotonic() + WAIT
+        got = []
+        while time.monotonic() < deadline:
+            got = [r.frame_id for r in c.wait_results(1, timeout=1.0)]
+            if roi_id in got:
+                break
+        assert roi_id in got, f"newest frame unanswered; got {got}"
+        assert set(got) <= {kf_id, roi_id}
+        cid = max(harness._sessions.keys())
+        assert harness.device_cache.has_frame(cid)
+        fc = harness.status()["frame_cache"]
+        assert fc["slots_total"] == 4 and fc["slots_used"] >= 1
+        assert fc["writes_flushed"] >= 1 and fc["cache_rejects"] == 0
+    finally:
+        c.stop()
+
+
+def test_eviction_does_not_leak_cache_slots(harness):
+    """Client churn with frames still in the decode queue must not leak
+    device-cache slots (cleanup is ordered through the decode worker): after
+    max_clients churn cycles, a new client still connects and serves."""
+    for i in range(6):  # > max_clients=4 churn rounds
+        c = _client(harness.port)
+        c.connect()
+        c.start_receiver()
+        c.send_jpeg_keyframe(synthetic_frame(96, 64, seed=i))
+        c.stop()  # DISCONNECT with the keyframe possibly still queued
+        time.sleep(0.05)
+    cache = harness.device_cache
+    assert _poll(lambda: len(cache._free) == cache.num_slots)
+    c = _client(harness.port)
+    try:
+        c.connect()
+        c.start_receiver()
+        c.send_jpeg_keyframe(synthetic_frame(96, 64, seed=99))
+        assert len(c.wait_results(1, timeout=WAIT)) == 1
+    finally:
+        c.stop()
+    assert _poll(lambda: len(cache._free) == cache.num_slots)
+
+
+def test_request_keyframe_recovery(fresh):
+    """A shed-frozen cache slot => the server sends COMMAND(REQUEST_KEYFRAME);
+    the client re-anchors with an immediate keyframe instead of waiting out
+    its keyframe cadence, and the slot unfreezes."""
+    from zero_latency_yolo_tpu_torch.runtime.simulator import StreamDriver
+    server = fresh(tpu={"batch_buckets": [1, 2]})
+    server.device_cache.warm()
+    server.device_cache._max_pending = 0  # every pending ROI write sheds
+    c = _client(server.port)
+    stream = StreamDriver(c, keyframe_interval=1000)  # cadence never fires
+    try:
+        c.connect()
+        c.start_receiver()
+        frame = synthetic_frame(96, 64, seed=1)
+        assert stream.push(frame) is not None      # keyframe primes the slot
+        assert c.wait_results(1, timeout=WAIT)
+        frame2 = frame.copy()
+        frame2[8:24, 8:24] = 255                   # small change => ROI path
+        stream.push(frame2)
+        assert stream.roi_sent == 1
+        # The shed freezes the slot; the server must command a keyframe.
+        assert _poll(lambda: c.keyframe_requested)
+        assert c.keyframe_requests_seen >= 1
+        assert _poll(lambda: server.keyframe_requests.value >= 1)
+        # Next capture re-anchors as a keyframe (flag consumed by push).
+        kf_before = stream.keyframes_sent
+        assert stream.push(frame2) is not None
+        assert stream.keyframes_sent == kf_before + 1
+        assert _poll(lambda: server.device_cache.frozen_clients() == [])
+    finally:
+        c.stop()
+
+
+def test_stop_stream_releases_the_cache_slot(harness):
+    """STOP_STREAM frees the client's cache slot while its session stays;
+    DISCONNECT frees the rest: /statusz's frame_cache.slots_used follows."""
+    c = _client(harness.port)
+    try:
+        c.connect()
+        c.start_receiver()
+        c.send_raw_frame(synthetic_frame(96, 64, seed=5))
+        assert c.wait_results(1, timeout=WAIT)
+        cid = max(harness._sessions.keys())
+        assert harness.device_cache.slot(cid) is not None
+        c.send_command(CommandType.STOP_STREAM)
+        assert _poll(lambda: harness.device_cache.slot(cid) is None)
+        assert cid in harness._sessions
+    finally:
+        c.stop()
+    assert _poll(lambda: harness.status()["frame_cache"]["slots_used"] == 0)
 
 
 def test_heartbeat_echo(harness):
@@ -657,8 +766,21 @@ def test_sharded_decode_workers_preserve_per_client_order(fresh):
 # ------------------------------------------------------ entry points
 
 def test_use_device_cache_refused():
-    with pytest.raises(ValueError, match="frame cache"):
-        DetectionServer(sim_config(), device="cpu", use_device_cache=True)
+    """No longer refused: the default server builds the device frame cache
+    (as the JAX server does), one slot a client at the largest frame bucket
+    on the server's device; use_device_cache=False builds none."""
+    from zero_latency_yolo_tpu_torch.ops.roi import DeviceFrameCache
+    cfg = sim_config(tpu={"frame_buckets": [[64, 128], [128, 96]]})
+    server = DetectionServer(cfg, device="cpu")
+    cache = server.device_cache
+    assert isinstance(cache, DeviceFrameCache)
+    assert server.batcher.device_cache is cache
+    assert tuple(cache._cache.shape) == (cfg.max_clients, 128, 128, 3)
+    assert cache._cache.device.type == "cpu"
+    assert server.status()["frame_cache"]["slots_total"] == cfg.max_clients
+    off = DetectionServer(sim_config(), device="cpu", use_device_cache=False)
+    assert off.device_cache is None and off.batcher.device_cache is None
+    assert off.status()["frame_cache"] is None
 
 
 def test_cuda_without_a_device_raises(monkeypatch):
@@ -718,14 +840,24 @@ PARITY_CONFIG = {
 }
 
 
+# The ROI update of `_exchange`: the rect (y, x, h, w) of the frame sent.
+ROI_RECT = (8, 16, 32, 48)
+
+
 def _exchange(client, frames, kinds):
-    """Send each frame (raw or JPEG keyframe) after the previous result
-    arrived; returns the results in order."""
+    """Send each frame (raw, JPEG keyframe, or an ROI update of the frame's
+    ROI_RECT) after the previous result arrived; returns the results in
+    order."""
     out = []
+    y, x, h, w = ROI_RECT
     for frame, kind in zip(frames, kinds):
-        send = (client.send_jpeg_keyframe if kind == "jpeg"
-                else client.send_raw_frame)
-        fid = send(frame)
+        if kind == "roi":
+            fid = client.send_roi_update(
+                np.ascontiguousarray(frame[y:y + h, x:x + w]), x=x, y=y)
+        else:
+            send = (client.send_jpeg_keyframe if kind == "jpeg"
+                    else client.send_raw_frame)
+            fid = send(frame)
         got = client.wait_results(len(out) + 1, timeout=120)
         assert len(got) == len(out) + 1 and got[-1].frame_id == fid, (
             f"frame {fid} unanswered")
@@ -752,12 +884,25 @@ class FrameClock:
 
 def test_server_matches_jax_server(tmp_path, monkeypatch):
     """The same yolov8p params (64 px, f32, frame bucket 96x96, batch
-    buckets 1/2, tracking on) behind the JAX server without its device
-    cache and behind the port's server on the CPU; each server is driven by
-    the other package's SimClient with the same raw and JPEG frames, one at
-    a time, its tracker on a 60 fps clock (FrameClock). Counts, classes and
-    track ids equal; boxes and confidences within 1e-3 (the gate of
+    buckets 1/2, tracking on) behind the JAX server and behind the port's
+    server on the CPU, both without the device cache; each server is driven
+    by the other package's SimClient with the same raw and JPEG frames, one
+    at a time, its tracker on a 60 fps clock (FrameClock). Counts, classes
+    and track ids equal; boxes and confidences within 1e-3 (the gate of
     tests/test_model_parity.py:54-63)."""
+    _servers_agree(tmp_path, monkeypatch, False, ["raw", "jpeg"] * 4)
+
+
+def test_cached_server_matches_jax_cached_server(tmp_path, monkeypatch):
+    """As test_server_matches_jax_server with the device frame cache on in
+    both servers (their default), and ROI updates among the frames: raw
+    keyframe, ROI, JPEG keyframe, ROI, ... Each result is the step on the
+    cached frame (the last keyframe with the ROIs pasted since), gathered
+    into the cache's bucket."""
+    _servers_agree(tmp_path, monkeypatch, True, ["raw", "roi", "jpeg", "roi"] * 2)
+
+
+def _servers_agree(tmp_path, monkeypatch, use_cache, kinds):
     jax = pytest.importorskip("jax")
     pytest.importorskip("cv2")
     from zero_latency_yolo_tpu.config import ServerConfig as JaxConfig
@@ -776,16 +921,18 @@ def test_server_matches_jax_server(tmp_path, monkeypatch):
                             folded=True), str(model))
     d = {**PARITY_CONFIG, "model_path": str(model)}
     jax_server = JaxServer(JaxConfig.from_dict({**d, "port": free_port()}),
-                           use_device_cache=False)
+                           use_device_cache=use_cache)
     port_server = DetectionServer(
-        ServerConfig.from_dict({**d, "port": free_port()}), device="cpu")
+        ServerConfig.from_dict({**d, "port": free_port()}), device="cpu",
+        use_device_cache=use_cache)
+    assert (jax_server.device_cache is None) == (not use_cache)
+    assert (port_server.device_cache is None) == (not use_cache)
     assert not jax_server.engine.simulation
     assert not port_server.engine.simulation
     harnesses = [ServerHarness(jax_server), ServerHarness(port_server)]
     for h in harnesses:
         h.start(warmup=True)
     frames = [synthetic_frame(96, 64, seed=i, t=0.3 * i) for i in range(8)]
-    kinds = ["raw", "jpeg"] * 4
     c_jax = _client(jax_server.port, cls=SimClient)     # port client
     c_port = _client(port_server.port, cls=JaxClient)   # JAX client
     try:

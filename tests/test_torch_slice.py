@@ -310,3 +310,115 @@ def test_engine_dispatch_copies_only_pinned_staging_non_blocking(monkeypatch):
     assert again.staging_buf[0] is frames and again.staging_buf[1] is shw
     assert [(r.frame_id, len(r.detections)) for r in eng.complete(again)] == [
         (r.frame_id, len(r.detections)) for r in got[0]]
+
+
+def _dets(results):
+    return [(r.client_id, r.frame_id,
+             [(d.class_id, d.x, d.y, d.width, d.height, d.confidence)
+              for d in r.detections]) for r in results]
+
+
+def test_engine_infer_batch_cached_matches_infer_batch_and_jax():
+    """Frames written to the device frame cache and served from it: equal
+    to infer_batch on the same frames to the last bit (the config's one
+    frame bucket is the cache's shape, so both run the same bucket and
+    batch), and to the JAX engine's infer_batch_cached on the JAX cache
+    within the 1e-3 gate; dispatch_from_cache through dispatch_with equals
+    both."""
+    from zero_latency_yolo_tpu.ops.roi import DeviceFrameCache as JaxCache
+    from zero_latency_yolo_tpu_torch.ops.roi import DeviceFrameCache
+    tree = _spread_params(2)
+    peng = pt_engine.InferenceEngine(ServerConfig.from_dict(_engine_cfg()),
+                                     params=tree, device="cpu")
+    jeng = jax_engine.InferenceEngine(JaxConfig.from_dict(_engine_cfg()),
+                                      params=tree)
+    reqs = _requests(pt_engine.InferenceRequest, 4)
+    jreqs = _requests(jax_engine.InferenceRequest, 4)
+    cache = DeviceFrameCache(4, 96, 128, device="cpu")
+    jcache = JaxCache(4, 96, 128)
+    ids = [r.client_id for r in reqs]
+    for r in reqs:
+        assert cache.write_keyframe(r.client_id, r.data)
+        assert jcache.write_keyframe(r.client_id, r.data)
+    frames, hs, ws = cache.gather(ids)
+    got = peng.infer_batch_cached(reqs, frames, hs, ws)
+    want = peng.infer_batch(reqs)
+    assert sum(len(r.detections) for r in want) > 0, "vacuous: no detections"
+    assert _dets(got) == _dets(want)
+    fused = peng.complete(cache.dispatch_with(
+        lambda c, s, h, w: peng.dispatch_from_cache(reqs, c, s, h, w), ids))
+    assert _dets(fused) == _dets(want)
+    jframes, jhs, jws = jcache.gather(ids)
+    ref = jeng.infer_batch_cached(jreqs, jframes, jhs, jws)
+    for g, w in zip(got, ref):
+        assert len(g.detections) == len(w.detections)
+        for dg, dw in zip(g.detections, w.detections):
+            assert dg.class_id == dw.class_id
+            np.testing.assert_allclose(
+                [dg.x, dg.y, dg.width, dg.height, dg.confidence],
+                [dw.x, dw.y, dw.width, dw.height, dw.confidence], atol=1e-3)
+
+
+def test_engine_cached_dispatch_refuses_unbucketed_shapes():
+    """As the JAX engine (tests/test_engine.py:94): dispatch_cached takes
+    only a (batch bucket, frame bucket) shape, dispatch_from_cache only a
+    batch bucket of slots."""
+    eng = pt_engine.InferenceEngine(ServerConfig.from_dict(_engine_cfg()),
+                                    params=_spread_params(2), device="cpu")
+    reqs = _requests(pt_engine.InferenceRequest, 3)
+    with pytest.raises(ValueError, match="not a configured"):
+        eng.dispatch_cached(reqs, torch.zeros((3, 96, 128, 3), dtype=torch.uint8),
+                            np.array([64] * 3), np.array([96] * 3))
+    with pytest.raises(ValueError, match="not a configured"):
+        eng.dispatch_cached(reqs[:2], torch.zeros((2, 64, 64, 3),
+                                                  dtype=torch.uint8),
+                            np.array([64] * 2), np.array([64] * 2))
+    cache = torch.zeros((4, 96, 128, 3), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="batch bucket"):
+        eng.dispatch_from_cache(reqs, cache, np.arange(3), np.full(3, 64),
+                                np.full(3, 96))
+    assert eng.error_count.value == 0
+
+
+def test_engine_dispatch_from_cache_copies_only_pinned_staging(monkeypatch):
+    """dispatch_from_cache moves one packed (3, B) int32 array of slots,
+    heights and widths to the device, non_blocking, from a staging buffer
+    that is recycled when the batch is read back."""
+    from zero_latency_yolo_tpu_torch.ops.roi import DeviceFrameCache
+    eng = pt_engine.InferenceEngine(ServerConfig.from_dict(_engine_cfg()),
+                                    params=_spread_params(2), device="cpu")
+    reqs = _requests(pt_engine.InferenceRequest, 2)
+    cache = DeviceFrameCache(4, 96, 128, device="cpu")
+    for r in reqs:
+        assert cache.write_keyframe(r.client_id, r.data)
+    cache.run_locked(lambda c: c)
+    calls, recording = [], [True]
+    to, step = torch.Tensor.to, eng._step
+
+    def rec_to(self, *args, **kwargs):
+        if recording[0]:
+            calls.append((self, kwargs))
+        return to(self, *args, **kwargs)
+
+    def quiet_step(*args):
+        recording[0] = False
+        try:
+            return step(*args)
+        finally:
+            recording[0] = True
+    monkeypatch.setattr(eng, "_step", quiet_step)
+    monkeypatch.setattr(torch.Tensor, "to", rec_to)
+    pending = cache.dispatch_with(
+        lambda c, s, h, w: eng.dispatch_from_cache(reqs, c, s, h, w),
+        [r.client_id for r in reqs])
+    monkeypatch.undo()
+    (src, kwargs), = calls
+    assert kwargs.get("non_blocking") is True
+    shw, = pending.staging_buf
+    assert src is shw and shw.dtype == torch.int32 and shw.shape == (3, 2)
+    assert shw[:, 1].tolist() == [cache.slot(2), reqs[1].height, reqs[1].width]
+    eng.complete(pending)
+    again = cache.dispatch_with(
+        lambda c, s, h, w: eng.dispatch_from_cache(reqs, c, s, h, w),
+        [r.client_id for r in reqs])
+    assert again.staging_buf[0] is shw

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """Loopback load on the port's UDP server on one NVIDIA GPU: the deployed
 config (`configs/examples/server-cs16-416.json`: yolov8n, 416 px, bf16,
-real weights; no device frame cache) served by `DetectionServer` in this
-process, and clients streaming raw frames to it over loopback UDP, from
-threads of this process or from one child process.
+real weights) served by `DetectionServer` in this process, with its device
+frame cache (the default) or without it, and clients streaming raw frames
+to it over loopback UDP, from threads of this process or from one child
+process.
 
     python3 zero_latency_yolo_tpu_torch/bench_server.py \\
         [--clients-in threads|process] [--clients 8] [--fps 60] \\
-        [--seconds 4] [--native-transport] [--label L]
+        [--seconds 4] [--native-transport] [--cache | --no-cache] [--label L]
 
 The frames are `synthetic_frame`s of 160x120 (raw RGB, 57,600 B, one
 datagram): they land in the 608x800 frame bucket, so every step runs the
 full model. With `--clients-in threads` the clients share this process, and
 its GIL, with the server; with `process` they run in a child process.
 `--native-transport` serves through the native recvmmsg transport instead
-of the asyncio endpoint.
+of the asyncio endpoint. With the cache each frame is written to the
+server's device frame cache as a keyframe and every batch is gathered out
+of it, at the cache's shape (the largest frame bucket, 1080x1920); with
+`--no-cache` it is staged from host memory into its own bucket (608x800).
 `chip_smoke.py`'s server phase runs `run_load` with the clients in
 threads.
 
@@ -22,7 +26,10 @@ Prints one JSON line (`load`): frames sent, results received, the drops the
 server counted (engine and kernel receive-buffer drops), the server's own
 detect latency p50 and p99 (datagram arrival to result sent, over
 [0.5, 3.0) s of the load), results a second over that window, batch sizes,
-the host time of each `engine.dispatch` call (median and p90, ms), the
+the host time of each batch's step launch (`engine.dispatch`, or
+`engine.dispatch_gathered` with the cache; median and p90, ms), with the
+cache the time the batcher holds the cache's lock for a batch (the flush of
+the queued writes and the gather: `lock_ms_p50` / `lock_ms_p90`), the
 device's busy time and idle share over the last second of the load
 (torch.profiler), the server socket's granted receive buffer (`rcvbuf`;
 None on the native transport), and the machine's IP and UDP drop counters
@@ -242,23 +249,29 @@ def device_idle_share(torch, seconds: float) -> tuple:
 
 
 def run_load(torch, server, clients_in: str = "threads", n: int = 8,
-             fps: float = 60.0, seconds: float = 4.0) -> dict:
+             fps: float = 60.0, seconds: float = 4.0, during=None) -> dict:
     """Drive a started server with n clients for `seconds` (see the module
     docstring) and return what was sent, received and measured. The load
     needs at least 3.5 s: the latency window ends at 3.0 s and the idle
-    share is read over the last second."""
-    engine = server.engine
+    share is read over the last second. `during`, if given, is called at
+    3.0 s, while every client is connected; its result is returned under
+    "during"."""
+    engine, cache = server.engine, server.device_cache
     batch_sizes = collections.Counter()
-    dispatch_ms = []
-    dispatch = engine.dispatch
+    dispatch_ms, lock_ms = [], []
+    dispatch, dispatch_gathered = engine.dispatch, engine.dispatch_gathered
+    dispatch_with = cache.dispatch_with if cache is not None else None
 
-    def timed(requests, size=None):
-        t = time.perf_counter()
-        try:
-            return dispatch(requests, size=size)
-        finally:
-            dispatch_ms.append((time.perf_counter() - t) * 1e3)
-            batch_sizes[len(requests)] += 1
+    def timing(fn, out, count):
+        def timed(first, *args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(first, *args, **kwargs)
+            finally:
+                out.append((time.perf_counter() - t) * 1e3)
+                if count:  # first: the batch's requests
+                    batch_sizes[len(first)] += 1
+        return timed
 
     child = clients = None
     try:
@@ -272,13 +285,18 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
                 raise RuntimeError("client process did not start")
         else:
             clients = Clients(server.port, n)
-        engine.dispatch = timed
+        engine.dispatch = timing(dispatch, dispatch_ms, True)
+        engine.dispatch_gathered = timing(dispatch_gathered, dispatch_ms, True)
+        if cache is not None:
+            cache.dispatch_with = timing(dispatch_with, lock_ms, False)
         transport = server._transport
         sock = (transport.get_extra_info("socket")
                 if hasattr(transport, "get_extra_info") else None)
         rcvbuf = (sock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
                   if sock is not None else None)
         net0 = net_counters()
+        # The engine may have served before (a server reusing it).
+        drops0 = engine.frames_dropped.value
         t0 = time.perf_counter() + 0.05
         if child is not None:
             child.stdin.write(f"{t0!r}\n")
@@ -293,6 +311,7 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
         time.sleep(max(t0 + 3.0 - time.perf_counter(), 0))
         r1 = server.results_sent.value
         lat = server.detect_latency.snapshot()
+        seen = during() if during is not None else None
         time.sleep(max(t0 + seconds - 0.95 - time.perf_counter(), 0))
         busy, wall, idle = device_idle_share(torch, 0.9)
         if child is not None:
@@ -312,7 +331,9 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
             sent = [s[0] for s in clients.sent]
             results = clients.results()
     finally:
-        engine.dispatch = dispatch
+        engine.dispatch, engine.dispatch_gathered = dispatch, dispatch_gathered
+        if cache is not None:
+            cache.dispatch_with = dispatch_with
         if clients is not None:
             clients.stop()
         if child is not None and child.poll() is None:
@@ -320,11 +341,18 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
             child.wait()
     net1 = net_counters()
     st = server.status()
-    q = statistics.quantiles(dispatch_ms, n=10) if len(dispatch_ms) > 1 else [0.0] * 9
+
+    def p50_p90(xs):
+        if not xs:
+            return 0.0, 0.0
+        q = statistics.quantiles(xs, n=10) if len(xs) > 1 else [xs[0]] * 9
+        return statistics.median(xs), q[8]
+    (d50, d90), (l50, l90) = p50_p90(dispatch_ms), p50_p90(lock_ms)
     return dict(
         clients_in=clients_in, clients=n, fps=fps, seconds=seconds,
+        cache=st["frame_cache"], during=seen,
         sent=sent, results=results,
-        engine_drops=int(st["engine"]["dropped"]),
+        engine_drops=int(st["engine"]["dropped"]) - drops0,
         kernel_drops=st["transport"]["kernel_drops"] or 0,
         bad_packets=st["transport"]["bad_packets"],
         frames_received=st["frames_received"],
@@ -332,8 +360,8 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
         latency_samples=min(lat["count"], 1000),
         results_per_s=(r1 - r0) / 2.5,
         batch_sizes=dict(sorted(batch_sizes.items())),
-        dispatch_ms_p50=statistics.median(dispatch_ms) if dispatch_ms else 0.0,
-        dispatch_ms_p90=q[8],
+        dispatch_ms_p50=d50, dispatch_ms_p90=d90,
+        lock_ms_p50=l50, lock_ms_p90=l90,
         busy_ms=busy, wall_ms=wall, idle_share=idle, rcvbuf=rcvbuf,
         net={k: v - net0.get(k, 0) if k != "lo_mtu" else v
              for k, v in net1.items()})
@@ -348,6 +376,10 @@ def main() -> None:
     ap.add_argument("--seconds", type=float, default=4.0)
     ap.add_argument("--native-transport", action="store_true",
                     help="network.use_native_transport (recvmmsg intake)")
+    ap.add_argument("--cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="serve with the device frame cache (the server's "
+                         "use_device_cache; default on)")
     ap.add_argument("--label", default="")
     ap.add_argument("--child", nargs=4, metavar=("PORT", "N", "FPS", "SECONDS"),
                     help=argparse.SUPPRESS)
@@ -366,7 +398,8 @@ def main() -> None:
                          text=True, check=True, timeout=60)
     warm_profiler(torch)
     cfg = deployed_config(native_transport=args.native_transport)
-    srv = ServerThread(DetectionServer(cfg, device="cuda")).start(warmup=True)
+    srv = ServerThread(DetectionServer(
+        cfg, device="cuda", use_device_cache=args.cache)).start(warmup=True)
     try:
         load = run_load(torch, srv.server, args.clients_in, args.clients,
                         args.fps, args.seconds)
@@ -375,6 +408,7 @@ def main() -> None:
     print(json.dumps({"label": args.label,
                       "device": smi.stdout.strip().splitlines()[0],
                       "native_transport": args.native_transport,
+                      "cache": args.cache,
                       "load": load}), flush=True)
 
 

@@ -9,9 +9,8 @@ The reference client prefixes JPEG-compressed changed-region updates with a
     u16 full_width      full frame width
 
 The reference *server* never implemented the decode path (SURVEY §2.9 item 8);
-the JAX package decodes the JPEG region on host and pastes it into the
-per-client keyframe cache on device (its ops/roi.py, not ported yet: the
-PyTorch server drops ROI updates).
+the server decodes the JPEG region on the host and pastes it into the
+per-client keyframe cache on the device (ops/roi.py `DeviceFrameCache`).
 """
 
 from __future__ import annotations

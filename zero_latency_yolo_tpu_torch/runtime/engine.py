@@ -18,12 +18,19 @@ true per-frame (h, w) are runtime tensors. Simulation mode serves random
 detections when the model file cannot be loaded, as the JAX engine does
 (reference onnx_engine.cpp:70-75, :1133-1177).
 
+Frames held in the device frame cache (`ops/roi.py` `DeviceFrameCache`)
+are served without a host copy: `dispatch_from_cache` uploads one packed
+(3, B) int32 slots/heights/widths array from pinned memory, gathers the
+batch's slots out of the cache on the device (`cache.index_select`) and
+runs the same step on the cache's own bucket. The server's batcher splits
+that into `gather_from_cache`, run under the cache's lock, and
+`dispatch_gathered`, run after it (see scheduler.py).
+
 Not ported yet, and refused at construction rather than served differently:
-the device frame cache (`warmup(cache=...)` raises), serve-size ladders (so
-`effective_serve_size` is always the model size and `update_adaptive_slo`
-refuses to enable), the synthetic step, int8, meshes, and the layout
-experiments stem="s2d", select="perlevel", c2f="split". The TPU kernel
-switches tpu.nms / tpu.act / tpu.conv1x1 have no effect here.
+serve-size ladders (so `effective_serve_size` is always the model size and
+`update_adaptive_slo` refuses to enable), the synthetic step, int8, meshes,
+and the layout experiments stem="s2d", select="perlevel", c2f="split". The
+TPU kernel switches tpu.nms / tpu.act / tpu.conv1x1 have no effect here.
 
 `create_engine` picks the engine from `config.inference_engine` under the
 JAX package's registry names: "jax" and "onnx" select `InferenceEngine`,
@@ -82,11 +89,12 @@ class PendingBatch:
     t0: float
     n: int
     simulated: Optional[List["EngineResult"]] = None
-    # Pinned host staging buffers (frames, packed heights and widths): held
-    # until the batch's results are read back (which proves their H2D copies
+    # Pinned host staging buffers (frames and packed heights and widths, or
+    # a cached batch's packed slots, heights and widths): held until the
+    # batch's results are read back (which proves their H2D copies
     # finished), then recycled.
-    staging_key: Optional[Tuple[int, int, int]] = None
-    staging_buf: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    staging_key: Optional[Tuple] = None
+    staging_buf: Optional[Tuple[torch.Tensor, ...]] = None
     # CUDA only: an event recorded on the stream after the step and after
     # the D2H copy of `out` into the pinned buffer `host` (when the copy was
     # started at dispatch: max_inflight <= 2). The event says whether the
@@ -104,6 +112,19 @@ class PendingBatch:
         that can wedge): not simulated, not a synthetic step."""
         return (self.out is not None and self.ready_at is None
                 and self.simulated is None)
+
+
+@dataclass
+class GatheredBatch:
+    """A batch gathered out of the device frame cache and not yet stepped
+    (InferenceEngine.gather_from_cache): its (B, H, W, 3) frames, a new
+    tensor on the device; the device copy of its packed (3, B) int32 slots,
+    heights and widths; and the pinned staging buffer that copy came from."""
+    frames: torch.Tensor
+    shw: torch.Tensor
+    staging_key: Tuple
+    staging_buf: Tuple[torch.Tensor, ...]
+    t0: float
 
 
 @dataclass
@@ -127,6 +148,11 @@ def _pick_bucket(buckets: Sequence[Tuple[int, int]], h: int, w: int
         if h <= bh and w <= bw:
             return (bh, bw)
     return None
+
+
+def _gather(cache: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """The batch's slots out of the frame cache, into a new tensor."""
+    return cache.index_select(0, slots)
 
 
 def _pick_batch(buckets: Sequence[int], n: int) -> int:
@@ -311,15 +337,28 @@ class InferenceEngine:
         compiles nothing per shape, so one step serves every pair."""
         return self._step
 
+    def get_step_cached(self, batch: int, bucket: Tuple[int, int]):
+        """The cached step: step(params, cache, shw, class_w, conf, iou),
+        shw a (3, B) int32 device tensor of rows [slots, heights, widths]:
+        the gather of the batch's slots out of the device frame cache
+        followed by the step (the JAX engine's fused program)."""
+        step = self.get_step(batch, bucket)
+
+        def cached(params, cache, shw, class_w, conf, iou):
+            return step(params, _gather(cache, shw[0]), shw[1], shw[2],
+                        class_w, conf, iou)
+        return cached
+
     def warmup(self, batches: Optional[Sequence[int]] = None,
                buckets: Optional[Sequence[Tuple[int, int]]] = None,
                cache=None, inflight: int = 0) -> float:
-        """Run every (batch, bucket) step once; returns seconds spent. The
-        server's call passes its device frame cache (None: not ported) and
-        its pipeline depth, for which PyTorch has nothing to compile."""
-        if cache is not None:
-            raise ValueError("warmup(cache=...): the device frame cache is "
-                             "not ported to the PyTorch engine")
+        """Run every (batch, bucket) step once; returns seconds spent. With
+        `cache` (a DeviceFrameCache, or its device tensor) the cache's write
+        path is run once too (`warm`), and the cached step once per batch
+        bucket under the cache's lock: a keyframe written meanwhile by a
+        client is flushed first, never overwritten mid-step. `inflight` is
+        the server's pipeline depth, for which PyTorch has nothing to
+        compile."""
         t0 = time.perf_counter()
         if not self.simulation:
             for b in (batches or self.batch_buckets):
@@ -334,6 +373,22 @@ class InferenceEngine:
                         self._params, frames, hs, ws, self._class_weights,
                         self.config.confidence_threshold,
                         self.config.nms_threshold).cpu()
+        if cache is not None:
+            if hasattr(cache, "warm"):
+                cache.warm()
+            locked = (cache.run_locked if hasattr(cache, "run_locked")
+                      else (lambda fn, _c=cache: fn(_c)))
+            for b in ((batches or self.batch_buckets)
+                      if not self.simulation else ()):
+                def launch(arr, b=b):
+                    bucket = (int(arr.shape[1]), int(arr.shape[2]))
+                    shw = torch.zeros((3, b), dtype=torch.int32)
+                    shw[1], shw[2] = bucket
+                    return self.get_step_cached(b, bucket)(
+                        self._params, arr, shw.to(self.device),
+                        self._class_weights, self.config.confidence_threshold,
+                        self.config.nms_threshold)
+                locked(launch).cpu()
         self.warmed = True
         dt = time.perf_counter() - t0
         log.info("engine warmup done in %.1fs", dt)
@@ -450,12 +505,10 @@ class InferenceEngine:
         grouped by (effective_serve_size): only the model size exists."""
         if not requests:
             return PendingBatch(requests=[], out=None, t0=0.0, n=0)
-        if size is not None and int(size) != self.model_size:
-            raise ValueError(f"serve size {size}: the engine serves only its "
-                             f"model size {self.model_size} (no ladder)")
+        self._check_size(size)
         if any(r.data is None for r in requests):
-            raise ValueError("request without pixels: frames from the device "
-                             "frame cache are not ported")
+            raise ValueError("request without pixels: a frame in the device "
+                             "frame cache is served by dispatch_from_cache")
         if self._simulating():
             return self._sim_pending(requests)
         t0 = time.perf_counter()
@@ -517,6 +570,18 @@ class InferenceEngine:
         out = self.get_step(batch, bucket)(
             params, frames_d, shw_d[0], shw_d[1], self._class_weights,
             self.config.confidence_threshold, self.config.nms_threshold)
+        return self._launched(requests, out, t0, key, (frames, shw))
+
+    def _check_size(self, size: Optional[int]) -> None:
+        if size is not None and int(size) != self.model_size:
+            raise ValueError(f"serve size {size}: the engine serves only its "
+                             f"model size {self.model_size} (no ladder)")
+
+    def _launched(self, requests: List[InferenceRequest], out: torch.Tensor,
+                  t0: float, staging_key: Tuple,
+                  staging_buf: Tuple[torch.Tensor, ...]) -> PendingBatch:
+        """The PendingBatch of a step just launched; on CUDA its result's
+        D2H copy is started and an event recorded behind it."""
         event = host = None
         if out.is_cuda:
             # Start the result's D2H copy now, so complete() finds it on the
@@ -529,10 +594,110 @@ class InferenceEngine:
                 host.copy_(out, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
-        return PendingBatch(requests=requests, out=out, t0=t0, n=n,
-                            staging_key=key, staging_buf=(frames, shw),
-                            event=event, host=host,
+        return PendingBatch(requests=requests, out=out, t0=t0,
+                            n=len(requests), staging_key=staging_key,
+                            staging_buf=staging_buf, event=event, host=host,
                             serve_size=self.model_size)
+
+    def _stage_shw(self, batch: int, rows: Sequence[np.ndarray]):
+        """A pinned (3, B) int32 staging buffer from the free-list, its rows
+        [slots, heights, widths] filled from `rows`, and its non_blocking
+        device copy: (key, buffer, device tensor)."""
+        key = ("shw", batch)
+        free = self._staging.setdefault(key, [])
+        buf = free.pop() if free else (torch.empty(
+            (3, batch), dtype=torch.int32,
+            pin_memory=self.device.type == "cuda"),)
+        host = buf[0].numpy()
+        for i, row in enumerate(rows):
+            host[i] = row
+        return key, buf, buf[0].to(self.device, non_blocking=True)
+
+    def infer_batch_cached(self, requests: List[InferenceRequest],
+                           frames: torch.Tensor, heights: np.ndarray,
+                           widths: np.ndarray) -> List[EngineResult]:
+        return self.complete(
+            self.dispatch_cached(requests, frames, heights, widths))
+
+    def dispatch_cached(self, requests: List[InferenceRequest],
+                        frames: torch.Tensor, heights: np.ndarray,
+                        widths: np.ndarray) -> PendingBatch:
+        """Launch over device-resident frames (a DeviceFrameCache gather):
+        no pixel staging, no H2D pixel copy. The frames' shape must be a
+        configured (batch bucket, frame bucket) pair, as the JAX engine
+        requires."""
+        if self._simulating():
+            return self._sim_pending(requests)
+        t0 = time.perf_counter()
+        batch = int(frames.shape[0])
+        bucket = (int(frames.shape[1]), int(frames.shape[2]))
+        if batch not in self.batch_buckets or bucket not in self.frame_buckets:
+            raise ValueError(
+                f"dispatch_cached shape (batch={batch}, bucket={bucket}) is "
+                f"not a configured (batch bucket, frame bucket) pair "
+                f"{self.batch_buckets} x {self.frame_buckets} — gather to a "
+                f"bucket first")
+        key, buf, shw_d = self._stage_shw(
+            batch, (0, np.asarray(heights, np.int32),
+                    np.asarray(widths, np.int32)))
+        return self.dispatch_gathered(requests, GatheredBatch(
+            frames=frames, shw=shw_d, staging_key=key, staging_buf=buf,
+            t0=t0))
+
+    def gather_from_cache(self, cache: torch.Tensor, slots: np.ndarray,
+                          heights: np.ndarray, widths: np.ndarray
+                          ) -> Optional[GatheredBatch]:
+        """The first half of dispatch_from_cache: the packed (3, B) upload
+        and the gather of the slots out of `cache` (the DeviceFrameCache's
+        tensor) into a new tensor; None in simulation mode. It launches two
+        device operations and waits for neither; call it under the cache's
+        lock (DeviceFrameCache.dispatch_with) and dispatch_gathered after.
+        len(slots) must be a batch bucket (pad the slot list first)."""
+        if self._simulating():
+            return None
+        t0 = time.perf_counter()
+        batch = len(slots)
+        if batch not in self.batch_buckets:
+            raise ValueError(
+                f"dispatch_from_cache batch={batch} is not a configured "
+                f"batch bucket {self.batch_buckets} — pad the slot list "
+                "to a bucket first")
+        key, buf, shw_d = self._stage_shw(batch, (
+            np.asarray(slots, np.int32), np.asarray(heights, np.int32),
+            np.asarray(widths, np.int32)))
+        return GatheredBatch(frames=_gather(cache, shw_d[0]), shw=shw_d,
+                             staging_key=key, staging_buf=buf, t0=t0)
+
+    def dispatch_gathered(self, requests: List[InferenceRequest],
+                          gathered: Optional[GatheredBatch],
+                          size: Optional[int] = None) -> PendingBatch:
+        """The second half of dispatch_from_cache: the step on a gathered
+        batch (None: simulated). Needs no lock: the gather is already
+        queued on the stream ahead of any later cache write."""
+        self._check_size(size)
+        if gathered is None or self._simulating():
+            return self._sim_pending(requests)
+        frames = gathered.frames
+        out = self.get_step(int(frames.shape[0]),
+                            (int(frames.shape[1]), int(frames.shape[2])))(
+            self._current_params(), frames, gathered.shw[1], gathered.shw[2],
+            self._class_weights, self.config.confidence_threshold,
+            self.config.nms_threshold)
+        return self._launched(requests, out, gathered.t0,
+                              gathered.staging_key, gathered.staging_buf)
+
+    def dispatch_from_cache(self, requests: List[InferenceRequest],
+                            cache: torch.Tensor, slots: np.ndarray,
+                            heights: np.ndarray, widths: np.ndarray,
+                            size: Optional[int] = None) -> PendingBatch:
+        """Gather + step over the device frame cache in one call (the JAX
+        engine's fused dispatch): one packed (3, B) upload of slots, heights
+        and widths from pinned memory, the gather, the step on the cache's
+        bucket; returns without waiting for the device. `size` is the serve
+        rung (only the model size exists)."""
+        self._check_size(size)
+        return self.dispatch_gathered(
+            requests, self.gather_from_cache(cache, slots, heights, widths))
 
     def _sim_pending(self, requests: List[InferenceRequest]) -> PendingBatch:
         pb = PendingBatch(requests=requests, out=None, t0=time.perf_counter(),

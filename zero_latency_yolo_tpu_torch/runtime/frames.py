@@ -4,9 +4,8 @@ The reference server rejected everything but raw w*h*3
 (src/network/network_server.cpp:191-197) while its client sent JPEG/ROI
 (SURVEY §2.9 item 8); this module supplies the missing decompression path.
 JPEG entropy decode uses cv2 (libjpeg-turbo), and JPEG payloads are
-refused without it. A copy of the JAX package's module; the PyTorch server
-hands decoded keyframes to the engine from host memory and drops ROI
-regions (it has no device frame cache yet).
+refused without it. A copy of the JAX package's module; decoded pixels flow
+into the device frame cache (ops/roi.py).
 """
 
 from __future__ import annotations

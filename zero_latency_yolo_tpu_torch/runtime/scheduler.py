@@ -3,8 +3,10 @@
 A copy of the JAX package's `runtime/scheduler.py` over the PyTorch engine.
 Two differences: a batch is ready when the CUDA event its dispatch recorded
 behind the step and the result's D2H copy has completed
-(`PendingBatch.event`); and frames held in the device frame cache
-(requests without pixels) raise, since that cache is not ported.
+(`PendingBatch.event`); and a batch served from the device frame cache
+(requests without pixels) holds the cache's lock only while it flushes the
+queued writes and gathers its slots, not while the step runs (see
+`_dispatch`).
 
 This replaces the reference's incoherent two-pool scheme (1 inference thread
 racing N worker threads on one queue, batching stubbed — SURVEY §2.3/§3.4)
@@ -30,11 +32,12 @@ from __future__ import annotations
 import threading
 import time
 from collections import OrderedDict, deque
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from ..utils.logging import get_logger
 from .engine import (
-    EngineResult, InferenceEngine, InferenceRequest, group_by_bucket,
+    EngineResult, InferenceEngine, InferenceRequest, _pick_batch,
+    group_by_bucket,
 )
 
 log = get_logger("scheduler")
@@ -164,9 +167,9 @@ class ContinuousBatcher:
             clients = list(self._queues.keys())
             # Keyframe priority (reference onnx_engine.cpp:241-244): when the
             # batch can't admit every stream, clients whose newest pending
-            # frame is a keyframe go first — with the device frame cache
-            # (not ported yet) a keyframe re-anchors the client's slot, so
-            # serving it late stalls every later ROI delta of the stream.
+            # frame is a keyframe go first — with the device frame cache a
+            # keyframe re-anchors the client's slot, so serving it late
+            # stalls every later ROI delta of the stream.
             if self._pending > self.max_batch:
                 clients.sort(key=lambda c: not (
                     self._queues[c] and self._queues[c][-1].keyframe))
@@ -330,6 +333,7 @@ class ContinuousBatcher:
         self._complete_n(len(self._inflight))
 
     def _dispatch(self, batch: List[InferenceRequest]):
+        cache = self.device_cache
         cached = [r for r in batch if r.data is None]
         hosted = [r for r in batch if r.data is not None]
         out = []
@@ -360,9 +364,30 @@ class ContinuousBatcher:
                               len(group))
 
         if cached:
-            raise RuntimeError(
-                f"{len(cached)} request(s) without pixels: serving from the "
-                "device frame cache is not ported")
+            if cache is None:
+                raise RuntimeError("cached requests but no device cache configured")
+            # Device-resident path: frames were written to the cache at
+            # packet-decode time; pad the slot list to the batch bucket.
+            # The cache's lock is held for the resolve, the flush of the
+            # queued writes and the gather of the slots into a new tensor
+            # (gather_from_cache), not for the step: the eager step spends
+            # milliseconds of host time launching its kernels, and a lock
+            # held that long would stall every decode worker's write_roi /
+            # write_keyframe. Nothing is donated in PyTorch and only this
+            # thread issues device work, so a write flushed later is queued
+            # on the stream behind this gather and cannot change its frames.
+            by_size: Dict[int, List[InferenceRequest]] = {}
+            for r in cached:
+                by_size.setdefault(eff(r.min_size), []).append(r)
+            for size, group in by_size.items():
+                n = len(group)
+                b = _pick_batch(self.engine.batch_buckets, n)
+                cids = [r.client_id for r in group]
+                cids += [cids[0]] * (b - n)
+                launch(group,
+                       lambda g, sz=size, ids=cids: self.engine.dispatch_gathered(
+                           g, cache.dispatch_with(
+                               self.engine.gather_from_cache, ids), size=sz))
         if hosted:
             # Group by frame bucket first: with non-nested buckets (e.g.
             # mixed portrait/landscape) no single bucket may cover the whole

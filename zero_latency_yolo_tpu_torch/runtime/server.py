@@ -15,18 +15,18 @@ on a single asyncio loop instead of recv/management threads:
 - port auto-increment once if busy (reliable_udp.cpp:98-129)
 - socket-level fatal errors re-create the endpoint in place (:492-509)
 
-FRAME_DATA payloads (raw RGB / JPEG keyframe) are decoded on the host and
-handed with their pixels to the continuous batcher, which closes device
-micro-batches on the PyTorch engine (its CUDA kernels on the card);
-DETECTION_RESULT goes back unreliable (a fresh result always supersedes a
-stale one — matching the reference's default-unreliable send,
-network_server.cpp:227-243).
+FRAME_DATA payloads (raw RGB / JPEG keyframe / ROIIMG region) are decoded
+on the host and written to the device frame cache (ops/roi.py, on the
+engine's device); the continuous batcher closes device micro-batches on the
+PyTorch engine (its CUDA kernels on the card), gathering each batch's
+frames out of the cache; DETECTION_RESULT goes back unreliable (a fresh
+result always supersedes a stale one — matching the reference's
+default-unreliable send, network_server.cpp:227-243). With
+`use_device_cache=False` keyframes are served from host memory and ROI
+updates are dropped, as the JAX server does without its cache.
 
-A copy of the JAX package's `runtime/server.py`, serving the way that server
-does with `use_device_cache=False`: the device frame cache is not ported, so
-keyframes are served from host memory and ROI updates are dropped; asking
-for the cache raises. JPEG payloads need `cv2` (runtime/frames.py). No
-profiler is wired to /profilez yet.
+A copy of the JAX package's `runtime/server.py`. JPEG payloads need `cv2`
+(runtime/frames.py). No profiler is wired to /profilez yet.
 
 A minimal /statusz HTTP endpoint on web_port replaces the reference
 dashboard's log-file scraping (web/server.js:198-248).
@@ -56,6 +56,7 @@ from ..utils.events import (
 )
 from ..protocol import native
 from ..protocol.packets import next_sequence, now_ms
+from ..ops.roi import DeviceFrameCache
 from ..utils.logging import get_logger
 from ..utils.stats import Counter, RollingStats
 from .adapters import GameAdapter, get_adapter
@@ -198,15 +199,12 @@ class DetectionServer:
     def __init__(self, config: ServerConfig,
                  engine: Optional[InferenceEngine] = None,
                  device: str = "cuda",
-                 use_device_cache: bool = False) -> None:
+                 use_device_cache: bool = True) -> None:
         import torch
         if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"DetectionServer(device={device!r}): no CUDA "
                                "device (pass device='cpu' to serve on the "
                                "CPU)")
-        if use_device_cache:
-            raise ValueError("use_device_cache: the device frame cache is "
-                             "not ported to the PyTorch server")
         self.config = config
         # config.inference_engine selects from the engine registry
         # (reference inference_engine.h:45-103 factory semantics).
@@ -220,11 +218,19 @@ class DetectionServer:
             enable_tracking=config.detection.enable_tracking,
             max_tracking_age_ms=config.detection.max_tracking_age_ms)
 
+        max_h = max(b[0] for b in config.tpu.frame_buckets)
+        max_w = max(b[1] for b in config.tpu.frame_buckets)
+        self.device_cache = (
+            DeviceFrameCache(config.max_clients, max_h, max_w,
+                             device=str(self.engine.device))
+            if use_device_cache else None)
+
         self.batcher = ContinuousBatcher(
             self.engine, self._on_results_threadsafe,
             max_batch=max(config.tpu.batch_buckets),
             batch_window_ms=config.tpu.batch_window_ms,
             max_queue_per_client=config.max_queue_size,
+            device_cache=self.device_cache,
             max_inflight=config.tpu.max_inflight)
 
         import os as _os
@@ -249,8 +255,9 @@ class DetectionServer:
         # N workers shard by client id (cid % N -> one FIFO queue each):
         # per-client frame ordering — and the eviction-cleanup-behind-
         # frames invariant — hold per worker, while independent clients'
-        # decodes parallelize on multicore hosts. No worker ever touches the
-        # device.
+        # decodes parallelize on multicore hosts. Cache writes are
+        # host-side deferred appends (lock-protected); no worker ever
+        # touches the device.
         import queue as _queue
         n_workers = max(int(config.worker_threads), 0)
         self._decode_queues = [_queue.Queue(maxsize=256)
@@ -288,6 +295,8 @@ class DetectionServer:
         self.bad_packets = Counter()
         self.results_sent = Counter()  # rate => live served fps
         self.keyframe_requests = Counter()  # REQUEST_KEYFRAME commands sent
+        self.cache_rejects = Counter()  # keyframes the device cache refused
+        self._cache_reject_log_at = 0.0  # rate limit for the warning
         self.frames_paused = Counter()  # frames shed at ingest while paused
         self.unknown_sender_naks = Counter()  # ERRORs to sessionless senders
         self._unknown_nak: Dict[Addr, float] = {}  # per-addr NAK rate limit
@@ -394,8 +403,12 @@ class DetectionServer:
                             self.config.network.web_port)
         if warmup and not self.engine.simulation:
             await asyncio.to_thread(self.engine.warmup,
-                                    None, None, None,
+                                    None, None, self.device_cache,
                                     self.config.tpu.max_inflight)
+        elif warmup and self.device_cache is not None:
+            # Simulation mode skips engine warmup, but the cache's writes
+            # are real device work regardless of engine mode.
+            await asyncio.to_thread(self.device_cache.warm)
         applied = {}
         if self.config.tpu.gc_tune:
             # Post-warmup: every compiled program / pool / session table
@@ -950,16 +963,17 @@ class DetectionServer:
                     error_code=ErrorCode.INVALID_REQUEST,
                     message=reason).serialize(), session.addr)
         elif pkt.command_type == CommandType.PAUSE_STREAM:
-            # Shed this client's frames at ingest; its tracker state stays
-            # warm for a cheap resume. (The reference
+            # Shed this client's frames at ingest; its device-cache slot and
+            # tracker state stay warm for a cheap resume. (The reference
             # declared these stream-control commands, types.h:94-103, but
             # never handled any of them.)
             session.paused = True
             log.info("client #%d stream paused", session.client_id)
         elif pkt.command_type == CommandType.STOP_STREAM:
-            # Stronger than pause: release the client's queued frames and
-            # its tracker state. Ordered through the client's decode FIFO so
-            # frames already queued decode before the release.
+            # Stronger than pause: release the client's device-cache slot
+            # (device memory is the contended serving resource) and its
+            # tracker state. Ordered through the client's decode FIFO so
+            # frames already queued decode before the slot goes away.
             session.paused = True
             if self._decode_queues:
                 self._enqueue_sentinel("__release__", session.client_id)
@@ -1038,12 +1052,14 @@ class DetectionServer:
 
     def _cleanup_client(self, client_id: int) -> None:
         self.batcher.remove_client(client_id)
+        if self.device_cache is not None:
+            self.device_cache.release(client_id)
         if self._capture is not None:
             self._capture.evict_client(client_id)
 
     def _release_stream(self, client_id: int) -> None:
-        """STOP_STREAM: free the serving resources (queued frames, tracker
-        state) while KEEPING the session registered —
+        """STOP_STREAM: free the serving resources (queued frames, device
+        cache slot, tracker state) while KEEPING the session registered —
         unlike _cleanup_client this runs for a live client that will
         START/RESUME later. A drain-path frame that raced the pause flag
         can re-acquire a slot right after this; that is benign (the client
@@ -1053,9 +1069,11 @@ class DetectionServer:
             # Evicted (cleanup owns teardown), or START/RESUME already
             # revived the stream — a delayed release (queue-full retry via
             # call_later breaks FIFO ordering) must not free the resumed
-            # stream's tracker.
+            # stream's fresh keyframe slot or reset its tracker.
             return
         self.batcher.remove_client(client_id)
+        if self.device_cache is not None:
+            self.device_cache.release(client_id)
         self.adapter.reset_client(client_id)
 
     def _queue_for(self, client_id: int):
@@ -1108,14 +1126,50 @@ class DetectionServer:
             timestamp=frame_ts, width=width, height=height,
             data=None, keyframe=keyframe,
             min_size=session.min_serve_size)
-        if decoded.roi is not None:
-            # An ROI delta patches the client's last frame in the device
-            # frame cache, which is not ported: dropped, as the JAX server
-            # drops it without its cache.
-            log.debug("ROI update without device cache; dropped")
-            return
-        request.data = decoded.pixels
-        if self._capture is not None:
+        cache = self.device_cache
+        if cache is not None:
+            if decoded.roi is not None:
+                ok = cache.write_roi(session.client_id, decoded.pixels,
+                                     decoded.roi.x, decoded.roi.y)
+                self._notify_frozen()
+                if not ok:
+                    # No anchoring keyframe (lost in transit, or overtaken
+                    # during the drain-path transition window): ask for one
+                    # now instead of serving nothing until the client's own
+                    # cadence — rate-limited like the shed path.
+                    log.debug("ROI before keyframe (client %d); dropped",
+                              session.client_id)
+                    if self._loop is not None:
+                        self._loop.call_soon_threadsafe(
+                            self._send_keyframe_requests,
+                            [session.client_id])
+                    return
+            else:
+                if not cache.write_keyframe(session.client_id, decoded.pixels):
+                    # Counted (visible to /statusz and operators) and
+                    # rate-limited: a misconfigured client streaming
+                    # oversized keyframes at 60 fps must not emit 60
+                    # warnings/s of formatting work on the decode worker.
+                    self.cache_rejects.inc()
+                    now = time.monotonic()
+                    if now - self._cache_reject_log_at > 5.0:
+                        self._cache_reject_log_at = now
+                        log.warning(
+                            "frame cache refused keyframe (client %d, "
+                            "%dx%d): no free slot or frame exceeds the "
+                            "slot bucket (%d rejects total)",
+                            session.client_id, width, height,
+                            self.cache_rejects.value)
+                    return
+        else:
+            if decoded.roi is not None:
+                log.debug("ROI update without device cache; dropped")
+                return
+            request.data = decoded.pixels
+        if self._capture is not None and decoded.roi is None:
+            # Full frames only: ROI-reconstructed frames live on the device
+            # and a readback here would ride the device lane; keyframes are
+            # the natural sample anyway (one per cadence, complete pixels).
             self._capture.offer_keyframe(session.client_id, frame_id,
                                          decoded.pixels)
         request.enqueue_t = (recv_t if recv_t is not None
@@ -1272,6 +1326,19 @@ class DetectionServer:
                 "detect_ms": round(total, 3),
             })
 
+    def _notify_frozen(self) -> None:
+        """Called on the decode worker after a cache write: any slot the
+        overflow policy froze gets a server-initiated REQUEST_KEYFRAME so
+        the stream re-anchors in one RTT instead of waiting out the
+        client's own keyframe cadence (ops/roi.py _shed_locked; the
+        reference declared the command, types.h:94-103, but never sent it)."""
+        cache = self.device_cache
+        if cache is None or self._loop is None:
+            return
+        cids = cache.drain_frozen()
+        if cids:
+            self._loop.call_soon_threadsafe(self._send_keyframe_requests, cids)
+
     def _send_keyframe_requests(self, cids: List[int]) -> None:
         now = time.monotonic()
         for cid in cids:
@@ -1287,14 +1354,23 @@ class DetectionServer:
                 continue
             session.last_kf_request = now
             self.keyframe_requests.inc()
-            log.debug("REQUEST_KEYFRAME -> client #%d", cid)
+            log.debug("REQUEST_KEYFRAME -> client #%d (slot frozen)", cid)
 
     # ========================================================== maintenance
     async def _management_loop(self) -> None:
         timeout_s = self.config.network.timeout_ms / 1000.0
         max_retries = self.config.network.max_retries
+        tick = 0
         while True:
             await asyncio.sleep(0.1)
+            tick += 1
+            if tick % 10 == 0 and self.device_cache is not None:
+                # Re-request keyframes for slots still frozen ~1s later
+                # (first command lost, or the client ignored it) — the
+                # per-session rate limit dedupes against the event path.
+                frozen = self.device_cache.frozen_clients()
+                if frozen:
+                    self._send_keyframe_requests(frozen)
             now = time.monotonic()
             for client_id in list(self._sessions.keys()):
                 session = self._sessions[client_id]
@@ -1330,10 +1406,11 @@ class DetectionServer:
         self._sync_peers()
         self.adapter.unregister_client(client_id)
         if self._decode_queues:
-            # Order the queue cleanup BEHIND any frames already queued for
-            # this client, so no frame of the dead id reaches the batcher
-            # after its queue was removed (with the device frame cache, not
-            # ported yet, such a frame would also leak a cache slot). The
+            # Order the queue/slot cleanup BEHIND any frames already queued
+            # for this client: a frame decoded after release() would
+            # re-acquire a cache slot under the dead id (client ids are
+            # never reused, so that slot would leak until the free list
+            # drained and the server stopped admitting ANY client). The
             # client's sharded FIFO worker orders sentinel-after-frames;
             # the drain-thread fast path CAN still enqueue a frame after
             # this point (it read the session ref pre-pop), so the LOAD-
@@ -1610,8 +1687,18 @@ class DetectionServer:
                 "hint_fps": self._rate_ctl.hint,
                 "updates_sent": self.rate_updates_sent.value,
             } if self._rate_ctl is not None else None),
-            # The device frame cache is not ported.
-            "frame_cache": None,
+            "frame_cache": ({
+                "slots_used": (self.device_cache.num_slots
+                               - len(self.device_cache._free)),
+                "slots_total": self.device_cache.num_slots,
+                "flushes": self.device_cache.flushes,
+                "writes_flushed": self.device_cache.writes_flushed,
+                "writes_shed": self.device_cache.writes_shed,
+                "frozen_slots": len(self.device_cache.frozen_clients()),
+                "keyframe_requests": self.keyframe_requests.value,
+                # Keyframes the cache refused (oversized/slot-exhausted).
+                "cache_rejects": self.cache_rejects.value,
+            } if self.device_cache is not None else None),
             "keyframe_requests": self.keyframe_requests.value,
             "engine": self.engine.status(),
             "adapter": self.adapter.status(),
