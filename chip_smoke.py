@@ -77,9 +77,49 @@ and the script exits non-zero:
    the step launch and (with the cache) of the lock hold, the device idle
    share (torch.profiler), beside the card's name and power limit; each
    load's launches on a `server ... kernels:` line.
-7. report: a `kernels:` line, one JSON line of kernel numbers (launches on
-   the main path, and by path: main, frame cache, each server load), and
-   the result line `{"ok": true, "device": {...}}` last.
+7. ladder, yolov8s@640: configs/examples/server-16stream-640-s.json
+   (yolov8s, 640 with a 512 rung, bf16, pre_nms_topk 128, real weights).
+   The card's f32 step at each rung against the JAX package's f32 step
+   (the committed fixture tests/torch_fixtures/jax_f32_step_s640.npz,
+   batch 4 of task and game frames; fixture_gate); the bf16 detection gate
+   against f32 at each rung (bf16_gate, task frames drawn at the rung's
+   size); every kernel against its plain version on the batch-16 640
+   step's own inputs (check_kernels, NMS at K = 128); the path through the
+   entry points (16 frames at 640 through infer_batch, 16 at 512 through
+   dispatch(size=512)) with each kernel's count reset just before and read
+   just after, each > 0 and every 1x1 on the tensor cores; wall time,
+   device time (CUDA events) and device busy time (profiler) of the step
+   at each rung at batch 1, 8 and 16, the cached step at batch 16 over the
+   1080x1920 cache, and the phase's peak device memory.
+8. step variants: yolov8n at 416 (the deployed config), real weights, batch
+   8, f32: tpu.preprocess "letterbox" and "stretch", tpu.select "perlevel",
+   tpu.c2f "split" and tpu.stem "s2d", each one batch through dispatch with
+   the counts reset just before and read just after (each > 0), and the
+   step with kernels against the step with plain versions (counts and
+   classes equal, boxes and scores within 1e-3); its packed output against
+   the default step's is printed, not gated (another computation). Then
+   tpu.c2f "auto" at batch 32 in bf16, which resolves to the split form:
+   50 1x1 GEMM, 47 bias+SiLU and 1 NMS launches a step, on the tensor
+   cores, and the bf16 detection gate against the f32 default step.
+9. adaptive policy: configs/examples/server-64stream-adaptive.json (yolov8n,
+   416 with a 320 rung). warmup certifies both rungs; dispatch/complete
+   with the SLO at 0.001 ms must step down to 320, where a batch equals, to
+   the last bit, infer_batch of an engine of model size 320; with the SLO
+   at 10 s it must step back up. Then one load of phase 6's clients on the
+   cached default server of that config with its SLO at 1 ms (below any
+   p99 the load reaches): the gates of phase 6's loads, size_downshifts >=
+   1 in /statusz, results at both rungs, and every batch stepped under the
+   load replayed (the step at its rung on its frames) equal to the last
+   bit to what it served.
+10. weights .pt/.onnx: a seeded yolov8n tree written as `.npz`, as a
+   state-dict `.pt` and as an `.onnx` initializer file; an engine booted on
+   each serves the model (not simulation), and the `.pt` and `.onnx`
+   engines' steps equal the `.npz` engine's to the last bit.
+11. report: a `kernels:` line, one JSON line of kernel numbers (launches on
+   the main path, and by path: main, frame cache, each server load, the
+   ladder, each variant, the adaptive load; each kernel's numbers at the
+   yolov8s 640 batch-16 shapes), and the result line
+   `{"ok": true, "device": {...}}` last.
 """
 
 from __future__ import annotations
@@ -96,6 +136,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "examples" / "server-cs16-416.json"
 FIXTURE = ROOT / "tests" / "torch_fixtures" / "jax_f32_step_416.npz"
+# The serve-size ladder's configs: yolov8s at 640 with its 512 rung, and its
+# JAX fixture; yolov8n at 416 with its 320 rung under the adaptive policy.
+CONFIG_S640 = ROOT / "configs" / "examples" / "server-16stream-640-s.json"
+FIXTURE_S640 = ROOT / "tests" / "torch_fixtures" / "jax_f32_step_s640.npz"
+CONFIG_ADAPTIVE = ROOT / "configs" / "examples" / "server-64stream-adaptive.json"
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and
 # operations/s by operand type (bf16 on the tensor cores, f32 on the CUDA
@@ -233,6 +278,16 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def step_device_ms(torch, fn, reps: int = 5) -> float:
+    """Median device time of one fn() (CUDA events around a single call
+    queued behind a spin). A serving step launches some 365 kernels; the
+    launches of several steps overflow what the host can queue ahead of
+    the spin, and the events then time the host, so steps are timed one at
+    a time."""
+    return float(np.median([time_ms(torch, fn, iters=1, warmup=int(i == 0))
+                            for i in range(reps)]))
+
+
 def wall_ms(torch, fn, iters: int = 10, warmup: int = 3) -> float:
     """Mean host-clock time of fn() with the device synchronized."""
     for _ in range(warmup):
@@ -303,9 +358,10 @@ def nms_bound(boxes, classes, valid, thr: float) -> tuple:
     return nbytes, NMS_PAIR_OPS * pairs
 
 
-def record_path_calls(engine, frames_d, hs, ws):
-    """Run one plain bf16 step and record the inputs it hands each kernel's
-    plain version: the serving path's own shapes and values."""
+def record_path_calls(engine, frames_d, hs, ws, size=None):
+    """Run one plain bf16 step (at serve size `size`, default the model
+    size) and record the inputs it hands each kernel's plain version: the
+    serving path's own shapes and values."""
     from zero_latency_yolo_tpu_torch.models import yolov8 as ym
     from zero_latency_yolo_tpu_torch.ops import nms as nms_mod
     calls = {"conv1x1_bias_act": [], "bias_silu": [], "nms_keep": []}
@@ -322,7 +378,7 @@ def record_path_calls(engine, frames_d, hs, ws):
     ym.bias_silu_plain = recorder("bias_silu", saved[1])
     nms_mod.nms_keep_plain = recorder("nms_keep", saved[2])
     try:
-        engine._build_step(plain=True)(
+        engine._build_step(int(frames_d.shape[0]), size, plain=True)(
             engine._params, frames_d, hs, ws, engine._class_weights,
             engine.config.confidence_threshold, engine.config.nms_threshold)
     finally:
@@ -677,6 +733,13 @@ def fixture_frames(fx) -> dict:
                      for s in fx["game_seeds"]]}
 
 
+def fixture_frames_s640(fx) -> dict:
+    """The yolov8s fixture's two batches of 4, remade from its seeds."""
+    return {"task": list(task_frames(4, 640, seed=int(fx["task_seed"]))),
+            "game": [synthetic_frame(800, 600, seed=int(s), t=0.3 * int(s))
+                     for s in fx["game_seeds"]]}
+
+
 def fixture_config(cfg, fx):
     """The config the fixture was made with: cfg in f32, with the fixture's
     task bucket in front of its frame buckets."""
@@ -685,6 +748,25 @@ def fixture_config(cfg, fx):
     out.tpu.frame_buckets = ([[int(v) for v in fx["task_bucket"]]]
                              + [list(b) for b in cfg.tpu.frame_buckets])
     return out
+
+
+def kernels_vs_plain(got: np.ndarray, want: np.ndarray, label: str) -> None:
+    """The packed f32 step with kernels against the plain step: counts and
+    classes equal, boxes and scores within 1e-3."""
+    from zero_latency_yolo_tpu_torch.ops.nms import unpack_outputs
+    g, w = unpack_outputs(got), unpack_outputs(want)
+    require(np.array_equal(g["count"], w["count"]),
+            f"{label} counts differ: {g['count']} vs plain {w['count']}")
+    valid = np.arange(32)[None, :] < w["count"][:, None]
+    require(np.array_equal(g["classes"][valid], w["classes"][valid]),
+            f"{label} classes differ from the plain step")
+    box_err = float(np.abs(g["boxes"] - w["boxes"])[valid].max(initial=0))
+    score_err = float(np.abs(g["scores"] - w["scores"])[valid].max(initial=0))
+    print(f"{label} kernels vs plain: counts {w['count'].tolist()} equal, "
+          f"classes equal, max box err {box_err:.3g}, max score err "
+          f"{score_err:.3g} (tolerance 1e-3)", flush=True)
+    require(box_err < 1e-3 and score_err < 1e-3,
+            f"{label} boxes or scores outside 1e-3 of the plain step")
 
 
 def _packed_rows(u: dict, f: int) -> np.ndarray:
@@ -758,6 +840,68 @@ def server_frames() -> list:
     task = [np.ascontiguousarray(f[:h]) for f in task_frames(4, w, seed=31)]
     return task + [synthetic_frame(w, h, seed=40 + i, t=0.4 * i)
                    for i in range(4)]
+
+
+def ultralytics_state_dict(tree) -> dict:
+    """A BN-folded NumPy tree (HWIO kernels) as the state_dict of a fused
+    ultralytics model: "model.<i>.<path>.conv.weight" (OIHW) and
+    ".conv.bias", the detect head's tips as bare Conv2d (".weight",
+    ".bias"). The inverse of models/weights.py from_ultralytics_state_dict
+    on folded trees."""
+    from zero_latency_yolo_tpu_torch.models.weights import flatten
+    out = {}
+    for key, val in flatten(tree).items():
+        *path, leaf = key.split("/")
+        tip = path[0] == "m22" and path[-1] == "2"
+        name = ".".join(["model", path[0][1:]] + path[1:]
+                        + ([] if tip else ["conv"])
+                        + ["weight" if leaf == "w" else "bias"])
+        out[name] = (np.ascontiguousarray(val.transpose(3, 2, 0, 1))
+                     if leaf == "w" else np.asarray(val))
+    return out
+
+
+def _varint(n: int) -> bytes:
+    out = b""
+    while True:
+        byte, n = n & 0x7F, n >> 7
+        out += bytes([byte | (0x80 if n else 0)])
+        if not n:
+            return out
+
+
+def _field(num: int, wire: int, payload: bytes) -> bytes:
+    tag = _varint((num << 3) | wire)
+    return tag + (_varint(len(payload)) + payload if wire == 2 else payload)
+
+
+def onnx_initializers_bytes(tensors: dict) -> bytes:
+    """An ONNX ModelProto whose graph holds only `tensors` as f32
+    initializers (dims, FLOAT, name, raw little-endian data): what the
+    port's `.onnx` reader reads of an ultralytics export."""
+    graph = b""
+    for name, arr in tensors.items():
+        msg = b"".join(_field(1, 0, _varint(d)) for d in arr.shape)
+        msg += _field(2, 0, _varint(1))
+        msg += _field(8, 2, name.encode())
+        msg += _field(9, 2, np.asarray(arr, "<f4").tobytes())
+        graph += _field(5, 2, msg)
+    return _field(7, 2, graph)
+
+
+def write_weight_files(tree, directory) -> dict:
+    """The tree as `.npz`, as a state-dict `.pt` and as an `.onnx`
+    initializer file in `directory`: {extension: path}."""
+    import torch
+    from zero_latency_yolo_tpu_torch.models.weights import flatten
+    directory = Path(directory)
+    paths = {ext: str(directory / f"model.{ext}") for ext in ("npz", "pt",
+                                                               "onnx")}
+    np.savez(paths["npz"], **flatten(tree))
+    sd = ultralytics_state_dict(tree)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, paths["pt"])
+    Path(paths["onnx"]).write_bytes(onnx_initializers_bytes(sd))
+    return paths
 
 
 def launch_counts() -> dict:
@@ -1002,16 +1146,22 @@ def frame_cache_phase(torch, engine, cfg, smi_line: str) -> dict:
 
 
 def server_load(torch, device: str, smi_line: str, cache: bool,
-                engine=None) -> dict:
+                engine=None, config: Path = CONFIG, slo_ms=None,
+                label=None, before=None) -> dict:
     """One load of the server phase (see the module docstring) on a fresh
     DetectionServer, with the device frame cache or without it, and its
-    gates. Returns the load's numbers, its launches and the engine."""
+    gates. `config` is the config file served, `slo_ms` replaces its
+    tpu.adaptive_slo_ms, `before(server)` is called just before the load.
+    Returns the load's numbers, its launches, the engine and the /statusz
+    body read after the load."""
     from zero_latency_yolo_tpu_torch.bench_server import (
         ServerThread, deployed_config, http_get, run_load)
     from zero_latency_yolo_tpu_torch.runtime.server import DetectionServer
-    label = "cached" if cache else "hosted (no cache)"
+    label = label or ("cached" if cache else "hosted (no cache)")
     w, h = SERVER_FRAME
-    cfg = deployed_config(tracking=True)
+    cfg = deployed_config(tracking=True, config=config)
+    if slo_ms is not None:
+        cfg.tpu.adaptive_slo_ms = float(slo_ms)
     web = cfg.network.web_port
     t_start = time.perf_counter()
     srv = ServerThread(DetectionServer(
@@ -1024,6 +1174,8 @@ def server_load(torch, device: str, smi_line: str, cache: bool,
           f"{engine.simulation}", flush=True)
     try:
         require(not engine.simulation, "server engine in simulation mode")
+        if before is not None:
+            before(server)
         reset_launch_counts()
         load = run_load(torch, server, "threads", SERVER_CLIENTS, SERVER_FPS,
                         SERVER_SECONDS, during=lambda: http_get(web, "/statusz"))
@@ -1100,7 +1252,7 @@ def server_load(torch, device: str, smi_line: str, cache: bool,
           f"{load['wall_ms']:.1f} ms, idle share "
           f"{'not measured' if idle is None else f'{idle:.3f}'} (profiler, "
           "last second of the load)", flush=True)
-    return dict(load, launches=launches, engine=engine)
+    return dict(load, launches=launches, engine=engine, statusz=st)
 
 
 def _served(c, got: list, send) -> None:
@@ -1257,6 +1409,447 @@ def server_phase(torch, device: str, smi_line: str) -> dict:
     server_exactness(torch, engine, device, True, has_cv2)
     return {"cached": cached, "hosted": hosted}
 
+def reset_and_read(fn) -> dict:
+    """Every kernel's count set to 0, fn() run, the device synchronized and
+    the counts read: the launches of fn's path."""
+    import torch
+    reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    return launch_counts()
+
+
+def require_launched(launches: dict, label: str, tensor_cores: bool = True):
+    require(all(launches[k] > 0 for k in KERNELS),
+            f"a kernel was not launched on the {label} path: {launches}")
+    if tensor_cores:
+        require(launches["conv1x1_wgmma"] == launches["conv1x1_bias_act"],
+                f"bf16 1x1 convs off the tensor cores ({label}): {launches}")
+
+
+def staged_batch(torch, frames, bucket, dev):
+    """Frames padded into one (B, H, W, 3) bucket on the device, with their
+    heights and widths."""
+    buf = np.zeros((len(frames),) + tuple(bucket) + (3,), np.uint8)
+    for i, f in enumerate(frames):
+        buf[i, :f.shape[0], :f.shape[1]] = f
+    hs = torch.tensor([f.shape[0] for f in frames], dtype=torch.int32,
+                      device=dev)
+    ws = torch.tensor([f.shape[1] for f in frames], dtype=torch.int32,
+                      device=dev)
+    return torch.from_numpy(buf).to(dev), hs, ws
+
+
+def load_config(path: Path):
+    from zero_latency_yolo_tpu_torch.config import ServerConfig
+    cfg = ServerConfig.load(str(path), create_if_missing=False)
+    cfg.model_path = str(ROOT / cfg.model_path)
+    return cfg
+
+
+def ladder_phase(torch, smi_line: str) -> dict:
+    """Phase 7, the serve-size ladder of yolov8s at 640 (see the module
+    docstring). Returns the kernels' report at the batch-16 640 shapes and
+    the phase's launches."""
+    from zero_latency_yolo_tpu_torch.runtime.engine import (InferenceEngine,
+                                                            InferenceRequest)
+    dev = torch.device(DEVICE)
+    cfg = load_config(CONFIG_S640)
+    fx = np.load(FIXTURE_S640)
+    conf, nms = cfg.confidence_threshold, cfg.nms_threshold
+    require(float(fx["confidence_threshold"]) == conf
+            and float(fx["nms_threshold"]) == nms,
+            "the yolov8s fixture's thresholds are not the config's")
+    # Both engines with the fixture's 640x640 bucket in front, so square
+    # frames at a rung's size take an identity letterbox.
+    cfg16 = fixture_config(cfg, fx)
+    cfg16.tpu.dtype = cfg.tpu.dtype
+    eng16 = InferenceEngine(cfg16, device=DEVICE)
+    eng32 = InferenceEngine(fixture_config(cfg, fx), device=DEVICE)
+    require(not eng16.simulation and not eng32.simulation,
+            f"{cfg.model_path} did not load")
+    require(eng16.serve_sizes == (640, 512) and eng16.spec.variant == "yolov8s",
+            f"ladder {eng16.serve_sizes} of {eng16.spec.variant}")
+    require(eng16.dtype == torch.bfloat16, "the yolov8s config is not bf16")
+
+    # f32 against the JAX f32 step at each rung (the committed fixture),
+    # under PyTorch's default TF32 settings.
+    require(torch.backends.cudnn.allow_tf32,
+            "cuDNN TF32 is not at PyTorch's default (on)")
+    for rung in (int(r) for r in fx["rungs"]):
+        found = 0
+        for name, frames in fixture_frames_s640(fx).items():
+            pend = eng32.dispatch(frame_requests(InferenceRequest, frames),
+                                  size=rung)
+            require(pend.serve_size == rung, f"served at {pend.serve_size}")
+            gate = fixture_gate(pend.out.cpu().numpy(), fx[f"{name}_{rung}"],
+                                conf, nms)
+            print(f"yolov8s f32 step at {rung} vs JAX f32 step ({name} "
+                  f"frames, fixture): counts {gate['counts']} vs "
+                  f"{gate['counts_jax']}; 1e-3 gate per frame "
+                  f"{gate['strict']}; max box err {gate['box_err']:.3g}, max "
+                  f"score err {gate['score_err']:.3g}; passed per frame "
+                  f"{gate['ok']}", flush=True)
+            for note in gate["notes"]:
+                print(f"  {note}", flush=True)
+            require(all(gate["ok"]), f"yolov8s f32 step at {rung} differs "
+                                     f"from the JAX f32 step ({name} frames)")
+            found += sum(gate["counts_jax"])
+        require(found > 0, f"fixture gate vacuous at {rung}")
+
+    # bf16 against the card's f32 at each rung, on task frames drawn at the
+    # rung's size (square: an identity letterbox at that rung).
+    for rung in (640, 512):
+        eng16._serve_size = eng32._serve_size = rung
+        task = task_frames(8, rung, seed=777)
+        g = bf16_gate(torch, eng16, eng32,
+                      frame_requests(InferenceRequest, list(task)), task,
+                      conf, nms)
+        print(f"yolov8s bf16 vs f32 at {rung} (task frames): counts "
+              f"{g['counts_bf16']} vs {g['counts_f32']}; literal gate per "
+              f"frame {g['literal']}; margin gate per frame {g['margin']} "
+              f"(excused: {g['excused']}); worst twin IoU "
+              f"{g['worst_iou']:.4f}, worst conf delta {g['worst_conf']:.4f}",
+              flush=True)
+        for note in g["notes"]:
+            print(f"  on a threshold: {note}", flush=True)
+        require(sum(g["counts_f32"]) > 0, f"bf16 gate vacuous at {rung}")
+        require(all(g["margin"]), f"yolov8s bf16 gate failed at {rung}")
+    eng16._serve_size = eng32._serve_size = 640
+    del eng32
+
+    # Every kernel against its plain version on the batch-16 640 step's own
+    # inputs (NMS at K = pre_nms_topk = 128).
+    bucket = (608, 800)
+    game = [synthetic_frame(800, 600, seed=s, t=0.3 * s) for s in range(16)]
+    with torch.inference_mode():
+        frames_d, hs, ws = staged_batch(torch, game, bucket, dev)
+        calls = record_path_calls(eng16, frames_d, hs, ws, 640)
+        require(len(calls["conv1x1_bias_act"]) == 24
+                and len(calls["bias_silu"]) == 39
+                and len(calls["nms_keep"]) == 1,
+                f"unexpected path: {[(n, len(c)) for n, c in calls.items()]}")
+        (boxes, _, _, _), _ = calls["nms_keep"][0]
+        require(tuple(boxes.shape) == (16, 128, 4),
+                f"NMS candidates {tuple(boxes.shape)}, not (16, 128, 4)")
+        report = check_kernels(torch, calls, nms, dev)
+        # check_kernels times NMS on its seeded case (B 8, K 256); here the
+        # path's own call (B 16, K 128) is timed and bounded.
+        from zero_latency_yolo_tpu_torch.ops import nms_cuda
+        args = calls["nms_keep"][0][0]
+        nbytes, nops = nms_bound(*args)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = nops / PEAK_OPS_PER_S["float32"]
+        report["nms_keep"].update(
+            ms=time_ms(torch, lambda: nms_cuda.nms_keep(*args)),
+            plain_ms=time_ms(torch, lambda: nms_cuda.nms_keep_plain(*args),
+                             iters=10),
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        print(f"nms_keep on the path's call (B 16, K 128): "
+              f"{1e3 * report['nms_keep']['ms']:.2f} us a launch, plain "
+              f"{report['nms_keep']['plain_ms']:.3f} ms; bound {nbytes} "
+              f"bytes, {nops} f32 operations "
+              f"({1e6 * max(t_bytes, t_ops):.4f} us)", flush=True)
+        torch.cuda.synchronize()
+    del calls
+
+    # The path, through the entry points: 16 frames at 640, 16 at 512.
+    reqs = frame_requests(InferenceRequest, game)
+
+    def path():
+        out = eng16.infer_batch(reqs)
+        out += eng16.complete(eng16.dispatch(reqs, size=512))
+        require(len(out) == 32 and sorted({r.serve_size for r in out})
+                == [512, 640], "the ladder path did not serve both rungs")
+        require(all(0.0 <= v <= 1.0 for r in out for d in r.detections
+                    for v in (d.x, d.y, d.width, d.height, d.confidence)),
+                "a detection outside [0, 1]")
+    launches = reset_and_read(path)
+    print(f"ladder path (yolov8s, 16 frames at 640 and 16 at 512): "
+          f"launches {launches}", flush=True)
+    require_launched(launches, "ladder")
+
+    # Step times per rung and batch: wall, device (CUDA events), device busy
+    # (profiler); the cached step at batch 16 over the 1080x1920 cache.
+    torch.cuda.reset_peak_memory_stats()
+    for rung in (640, 512):
+        for b in (1, 8, 16):
+            frames_d, hs, ws = staged_batch(torch, game[:b], bucket, dev)
+            step = eng16.get_step(b, bucket, rung)
+
+            def run():
+                return step(eng16._params, frames_d, hs, ws,
+                            eng16._class_weights, conf, nms)
+            wall = wall_ms(torch, run)
+            ev = step_device_ms(torch, run)
+            prof, own = profile_step(torch, run)
+            print(f"yolov8s bf16 step at {rung}, batch {b}, bucket "
+                  f"{bucket[0]}x{bucket[1]} on {smi_line}: wall {wall:.3f} ms, "
+                  f"device {ev:.3f} ms (CUDA events around one step queued "
+                  f"behind a spin, median of 5), device busy "
+                  f"{prof['busy_ms']:.3f} ms (profiler), "
+                  f"{prof['kernels']} CUDA kernels a step; in-step ms "
+                  + ", ".join(f"{n} {ms:.4f}" for n, ms in own.items()),
+                  flush=True)
+        cache = torch.zeros((16, 1080, 1920, 3), dtype=torch.uint8,
+                            device=dev)
+        shw = torch.zeros((3, 16), dtype=torch.int32)
+        shw[1], shw[2] = 1080, 1920
+        shw = shw.to(dev)
+        cached = eng16.get_step_cached(16, (1080, 1920), rung)
+
+        def run_cached():
+            return cached(eng16._params, cache, shw, eng16._class_weights,
+                          conf, nms)
+        ev = step_device_ms(torch, run_cached)
+        prof, _ = profile_step(torch, run_cached)
+        print(f"yolov8s bf16 cached step (gather + step) at {rung}, batch 16, "
+              f"1080x1920: device {ev:.3f} ms (CUDA events, one step), "
+              f"device busy {prof['busy_ms']:.3f} ms (profiler)", flush=True)
+        del cache
+    print(f"max memory allocated in the ladder phase: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    return {"report": report, "launches": launches}
+
+
+STEP_VARIANTS = {
+    "letterbox": {"preprocess": "letterbox"},
+    "stretch": {"preprocess": "stretch"},
+    "perlevel": {"select": "perlevel"},
+    "split": {"c2f": "split"},
+    "s2d": {"stem": "s2d"},
+}
+
+
+def variants_phase(torch, smi_line: str) -> dict:
+    """Phase 8, the engine's step variants on yolov8n at 416 (see the module
+    docstring). Returns the launches of each variant's batch."""
+    from zero_latency_yolo_tpu_torch.runtime.engine import (InferenceEngine,
+                                                            InferenceRequest)
+    dev = torch.device(DEVICE)
+    base = load_config(CONFIG)
+    base.tpu.dtype = "float32"
+    base.tpu.batch_buckets = (8,)
+    bucket = (608, 800)
+    game = [synthetic_frame(800, 600, seed=s, t=0.3 * s) for s in range(4, 12)]
+    reqs = frame_requests(InferenceRequest, game)
+    frames_d, hs, ws = staged_batch(torch, game, bucket, dev)
+    ref = InferenceEngine(base, device=DEVICE)
+    conf, nms = base.confidence_threshold, base.nms_threshold
+    default = ref.dispatch(reqs).out.cpu().numpy()
+    out = {}
+    for name, over in STEP_VARIANTS.items():
+        cfg = copy.deepcopy(base)
+        for key, value in over.items():
+            setattr(cfg.tpu, key, value)
+        eng = InferenceEngine(cfg, device=DEVICE)
+        pend = []
+        launches = reset_and_read(lambda: pend.append(eng.dispatch(reqs)))
+        got = pend[0].out.cpu().numpy()
+        want = eng._build_step(8, plain=True)(
+            eng._params, frames_d, hs, ws, eng._class_weights, conf,
+            nms).cpu().numpy()
+        kernels_vs_plain(got, want, f"variant {name} f32")
+        diff = np.abs(got - default)
+        print(f"variant {name} against the default step (not gated): counts "
+              f"{got[:, 0].astype(int).tolist()} vs "
+              f"{default[:, 0].astype(int).tolist()}, max packed difference "
+              f"{diff.max():.3g}; launches a batch-8 step {launches}",
+              flush=True)
+        require_launched(launches, f"variant {name}", tensor_cores=False)
+        out[name] = launches
+    # tpu.c2f="auto" at batch 32 in bf16: the split form, on the tensor
+    # cores; the bf16 detection gate against the f32 default step.
+    cfg = load_config(CONFIG)
+    cfg.tpu.batch_buckets = (32,)
+    eng = InferenceEngine(cfg, device=DEVICE)
+    require(cfg.tpu.c2f == "auto" and eng._c2f_form(32, 416) == "split",
+            "c2f='auto' at batch 32 does not resolve to the split form")
+    task = task_frames(8, 416, seed=777)
+    treqs = frame_requests(InferenceRequest, list(task))
+    launches = reset_and_read(lambda: eng.infer_batch(treqs))
+    print(f"variant auto@32 (bf16, split C2f): launches a step {launches}",
+          flush=True)
+    require(launches["conv1x1_bias_act"] == 50 and launches["bias_silu"] == 47
+            and launches["nms_keep"] == 1,
+            f"split C2f launches a step {launches}, not 50 / 47 / 1")
+    require_launched(launches, "auto@32")
+    ref_cfg = load_config(CONFIG)
+    ref_cfg.tpu.dtype = "float32"
+    g = bf16_gate(torch, eng, InferenceEngine(ref_cfg, device=DEVICE), treqs,
+                  task, conf, nms)
+    print(f"variant auto@32 bf16 vs f32 (task frames): counts "
+          f"{g['counts_bf16']} vs {g['counts_f32']}; margin gate per frame "
+          f"{g['margin']} (excused: {g['excused']})", flush=True)
+    for note in g["notes"]:
+        print(f"  on a threshold: {note}", flush=True)
+    require(sum(g["counts_f32"]) > 0 and all(g["margin"]),
+            "the split C2f's bf16 gate failed")
+    out["auto@32"] = launches
+    return out
+
+
+def capture_gathered(engine, store: list) -> None:
+    """Wrap engine.dispatch_gathered so that every batch it steps leaves its
+    served client frames (the top-left SERVER_FRAME crop of each gathered
+    slot; the rest of a slot is zero after a keyframe), its (3, B) slots,
+    heights and widths, its rung and its packed output in `store`."""
+    w, h = SERVER_FRAME
+    inner = engine.dispatch_gathered
+
+    def dispatch_gathered(requests, gathered, size=None):
+        pb = inner(requests, gathered, size)
+        if gathered is not None and pb.out is not None:
+            store.append(dict(crop=gathered.frames[:, :h, :w].clone(),
+                              bucket=tuple(gathered.frames.shape[1:3]),
+                              shw=gathered.shw.clone(), size=pb.serve_size,
+                              out=pb.out.clone(), n=len(requests)))
+        return pb
+    engine.dispatch_gathered = dispatch_gathered
+
+
+def adaptive_phase(torch, smi_line: str) -> dict:
+    """Phase 9, the adaptive policy (see the module docstring). Returns the
+    launches of the server load."""
+    from zero_latency_yolo_tpu_torch.runtime.engine import (InferenceEngine,
+                                                            InferenceRequest)
+    dev = torch.device(DEVICE)
+    cfg = load_config(CONFIG_ADAPTIVE)
+    engine = InferenceEngine(cfg, device=DEVICE)
+    require(not engine.simulation and engine.serve_sizes == (416, 320)
+            and engine.adaptive_slo_ms > 0,
+            f"adaptive config: ladder {engine.serve_sizes}, SLO "
+            f"{engine.adaptive_slo_ms}, simulation {engine.simulation}")
+    t0 = time.perf_counter()
+    engine.warmup()
+    print(f"adaptive warmup: {time.perf_counter() - t0:.2f} s over batches "
+          f"{engine.batch_buckets} x buckets {engine.frame_buckets} x rungs "
+          f"{engine.serve_sizes}; certified {engine._warmed_sizes}", flush=True)
+    require(engine._warmed_sizes == (416, 320), "warmup did not certify both "
+                                                "rungs")
+    reqs = frame_requests(InferenceRequest, [
+        synthetic_frame(800, 600, seed=s, t=0.3 * s) for s in range(4, 12)])
+
+    def drive(until, limit_s=30.0):
+        t0, steps = time.perf_counter(), 0
+        while not until() and time.perf_counter() - t0 < limit_s:
+            for r in reqs:  # a fresh submit time: e2e is this step's
+                r.enqueue_t = time.perf_counter()
+            engine.complete(engine.dispatch(reqs))
+            steps += 1
+        return steps, time.perf_counter() - t0
+
+    require(engine.update_adaptive_slo(0.001), "SLO enable refused")
+    steps, secs = drive(lambda: engine._serve_size != 416)
+    p99 = engine.e2e_latency.snapshot()["p99_ms"]
+    print(f"adaptive: SLO 0.001 ms: downshift to {engine._serve_size} after "
+          f"{steps} batch-8 steps, {secs:.2f} s (e2e p99 {p99:.3f} ms)",
+          flush=True)
+    require(engine._serve_size == 320 and engine.size_downshifts == 1,
+            f"no downshift: serve size {engine._serve_size}")
+    served = engine.complete(engine.dispatch(reqs))
+    static = load_config(CONFIG_ADAPTIVE)
+    static.detection.model_width = static.detection.model_height = 320
+    static.tpu.serve_sizes, static.tpu.adaptive_slo_ms = (), 0.0
+    want = InferenceEngine(static, device=DEVICE).infer_batch(reqs)
+    require(all(r.serve_size == 320 for r in served), "not served at 320")
+    require(_result_rows(served) == _result_rows(want),
+            "results at 320 differ from a 320 engine's infer_batch")
+    print(f"adaptive: results at 320 equal, to the last bit, to infer_batch "
+          f"of an engine of model size 320 "
+          f"({sum(len(r.detections) for r in want)} detections)", flush=True)
+    require(engine.update_adaptive_slo(1e4), "SLO change refused")
+    steps, secs = drive(lambda: engine._serve_size != 320)
+    print(f"adaptive: SLO 10000 ms: upshift to {engine._serve_size} after "
+          f"{steps} batch-8 steps, {secs:.2f} s", flush=True)
+    require(engine._serve_size == 416 and engine.size_upshifts == 1,
+            f"no upshift: serve size {engine._serve_size}")
+    del engine
+
+    # The cached default server under load with an SLO below its p99.
+    store = []
+    load = server_load(torch, DEVICE, smi_line, True, config=CONFIG_ADAPTIVE,
+                       slo_ms=1.0, label="adaptive (cached, SLO 1 ms)",
+                       before=lambda server: capture_gathered(server.engine,
+                                                              store))
+    engine = load["engine"]
+    st = load["statusz"]["engine"]
+    print(f"adaptive server: statusz serve_size {st['serve_size']}, "
+          f"size_downshifts {st['size_downshifts']}, size_upshifts "
+          f"{st['size_upshifts']}; results by serve size "
+          f"{load['serve_sizes']}", flush=True)
+    require(int(st["size_downshifts"]) >= 1, "the server did not downshift")
+    require(set(load["serve_sizes"]) == {416, 320},
+            f"results not served at both rungs: {load['serve_sizes']}")
+    # Every batch stepped under the load, replayed: the step at its rung on
+    # its frames gives its packed output to the last bit.
+    w, h = SERVER_FRAME
+    conf, nms = cfg.confidence_threshold, cfg.nms_threshold
+    by_size = {}
+    for rec in store:
+        shw = rec["shw"].cpu()
+        require(int(shw[1].max()) <= h and int(shw[2].max()) <= w,
+                "a served frame larger than the captured crop")
+        b = int(rec["crop"].shape[0])
+        canvas = torch.zeros((b,) + rec["bucket"] + (3,), dtype=torch.uint8,
+                             device=dev)
+        canvas[:, :h, :w] = rec["crop"]
+        again = engine.get_step(b, rec["bucket"], rec["size"])(
+            engine._params, canvas, rec["shw"][1], rec["shw"][2],
+            engine._class_weights, conf, nms)
+        require(torch.equal(again, rec["out"]),
+                f"a served batch at {rec['size']} differs from the engine's "
+                "step at that rung")
+        by_size[rec["size"]] = by_size.get(rec["size"], 0) + rec["n"]
+    require(sum(by_size.values()) == sum(load["serve_sizes"].values()),
+            f"batches replayed {by_size} do not cover the results "
+            f"{load['serve_sizes']}")
+    print(f"adaptive server: {len(store)} batches replayed, each equal to "
+          f"the last bit to the engine's step at its rung; frames by rung "
+          f"{by_size}", flush=True)
+    return {"launches": load["launches"]}
+
+
+def _result_rows(results) -> list:
+    return [(r.client_id, r.frame_id, [(d.x, d.y, d.width, d.height,
+                                        d.confidence, d.class_id)
+                                       for d in r.detections])
+            for r in results]
+
+
+def weights_phase(torch, smi_line: str) -> None:
+    """Phase 10, `.pt` and `.onnx` weights (see the module docstring)."""
+    import tempfile
+    from zero_latency_yolo_tpu_torch.models.yolov8 import get_spec, init_params
+    from zero_latency_yolo_tpu_torch.runtime.engine import (InferenceEngine,
+                                                            InferenceRequest)
+    tree = init_params(0, get_spec("yolov8n", 4))
+    for lvl in tree["m22"]["cv3"]:  # spread the class scores
+        lvl[2]["w"] = lvl[2]["w"] * 8.0
+        lvl[2]["b"] = np.linspace(-2, 2, 4).astype(np.float32)
+    reqs = frame_requests(InferenceRequest, [
+        synthetic_frame(800, 600, seed=s, t=0.3 * s) for s in range(4, 12)])
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_weight_files(tree, tmp)
+        for ext, path in paths.items():
+            cfg = load_config(CONFIG)
+            cfg.model_path = path
+            eng = InferenceEngine(cfg, device=DEVICE)
+            require(not eng.simulation, f"the {ext} engine is in simulation")
+            outs[ext] = eng.dispatch(reqs).out.cpu()
+            print(f"weights {ext}: {Path(path).stat().st_size} bytes, "
+                  f"simulation {eng.simulation}, counts "
+                  f"{outs[ext][:, 0].int().tolist()}", flush=True)
+    for ext in ("pt", "onnx"):
+        require(torch.equal(outs[ext], outs["npz"]),
+                f"the {ext} engine's step differs from the npz engine's")
+    require(int(outs["npz"][:, 0].sum()) > 0, "weights phase vacuous")
+    print("weights: the .pt and .onnx engines' steps equal the .npz "
+          "engine's to the last bit", flush=True)
+
+
 def main() -> None:
     with Phase("device"):
         import torch
@@ -1272,10 +1865,8 @@ def main() -> None:
               f"python {sys.version.split()[0]} "
               f"device {torch.cuda.get_device_name(0)}", flush=True)
         sys.path.insert(0, str(ROOT))
-        from zero_latency_yolo_tpu_torch.config import ServerConfig
         from zero_latency_yolo_tpu_torch.ops import (_build, act_cuda,
                                                      conv1x1_cuda, nms_cuda)
-        from zero_latency_yolo_tpu_torch.ops.nms import unpack_outputs
         from zero_latency_yolo_tpu_torch.runtime.engine import (
             InferenceEngine, InferenceRequest)
         dev = torch.device(DEVICE)
@@ -1295,20 +1886,11 @@ def main() -> None:
         require(k.build_seconds < 60.0,
                 f"nvcc took {k.build_seconds:.1f} s (limit 60 s)")
 
-    cfg = ServerConfig.load(str(CONFIG), create_if_missing=False)
-    cfg.model_path = str(ROOT / cfg.model_path)
+    cfg = load_config(CONFIG)
     bucket = (608, 800)
 
     def staged(frames):
-        b = len(frames)
-        buf = np.zeros((b,) + bucket + (3,), np.uint8)
-        for i, f in enumerate(frames):
-            buf[i, :f.shape[0], :f.shape[1]] = f
-        hs = torch.tensor([f.shape[0] for f in frames], dtype=torch.int32,
-                          device=dev)
-        ws = torch.tensor([f.shape[1] for f in frames], dtype=torch.int32,
-                          device=dev)
-        return torch.from_numpy(buf).to(dev), hs, ws
+        return staged_batch(torch, frames, bucket, dev)
 
     with Phase("kernels"):
         engine = InferenceEngine(cfg, device=DEVICE)
@@ -1367,22 +1949,10 @@ def main() -> None:
         args = (eng32._params, frames_d, hs, ws, eng32._class_weights,
                 cfg.confidence_threshold, cfg.nms_threshold)
         got = eng32.get_step(8, bucket)(*args).cpu().numpy()
-        want = eng32._build_step(plain=True)(*args).cpu().numpy()
+        want = eng32._build_step(8, plain=True)(*args).cpu().numpy()
         require(got.shape == (8, 1 + 6 * 32) and np.isfinite(got).all(),
                 f"packed output {got.shape} not finite (8, 193)")
-        g, w = unpack_outputs(got), unpack_outputs(want)
-        require(np.array_equal(g["count"], w["count"]),
-                f"f32 counts differ: {g['count']} vs plain {w['count']}")
-        valid = np.arange(32)[None, :] < w["count"][:, None]
-        require(np.array_equal(g["classes"][valid], w["classes"][valid]),
-                "f32 classes differ from the plain step")
-        box_err = float(np.abs(g["boxes"] - w["boxes"])[valid].max(initial=0))
-        score_err = float(np.abs(g["scores"] - w["scores"])[valid].max(initial=0))
-        print(f"f32 kernels vs plain: counts {w['count'].tolist()} equal, "
-              f"classes equal, max box err {box_err:.3g}, max score err "
-              f"{score_err:.3g} (tolerance 1e-3)", flush=True)
-        require(box_err < 1e-3 and score_err < 1e-3,
-                "f32 boxes or scores outside 1e-3 of the plain step")
+        kernels_vs_plain(got, want, "f32")
 
         # f32 against the JAX package's f32 step (the committed fixture),
         # under PyTorch's default TF32 settings: only the step's own switch
@@ -1476,10 +2046,26 @@ def main() -> None:
     with Phase("server"):
         srv = server_phase(torch, DEVICE, smi_line)
 
+    with Phase("ladder, yolov8s@640"):
+        ladder = ladder_phase(torch, smi_line)
+
+    with Phase("step variants"):
+        variants = variants_phase(torch, smi_line)
+
+    with Phase("adaptive policy"):
+        adaptive = adaptive_phase(torch, smi_line)
+
+    with Phase("weights .pt/.onnx"):
+        weights_phase(torch, smi_line)
+
     by_path = {n: {"main": launches[n], "frame_cache": fc["launches"][n],
                    "server_cached": srv["cached"]["launches"][n],
-                   "server_hosted": srv["hosted"]["launches"][n]}
+                   "server_hosted": srv["hosted"]["launches"][n],
+                   "ladder_s640": ladder["launches"][n],
+                   **{f"variant_{v}": variants[v][n] for v in variants},
+                   "adaptive_server": adaptive["launches"][n]}
                for n in KERNELS}
+    s640 = ladder["report"]
     print("kernels: " + ", ".join(
         f"{n} launches={launches[n]} (by path {by_path[n]})" for n in KERNELS),
         flush=True)
@@ -1497,7 +2083,10 @@ def main() -> None:
              "floor_ms": report[name]["floor_ms"]}
             if name == "nms_keep" else {}),
          **({"launches_by_route": by_route, "ms_simt": report[name]["ms_simt"]}
-            if name == "conv1x1_bias_act" else {})}
+            if name == "conv1x1_bias_act" else {}),
+         "at_yolov8s_640_b16": {k: s640[name][k] for k in (
+             "calls", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}}
         for name, (route, source, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,10 @@ through the ContinuousBatcher both complete, in order. The device frame
 cache on the card: dispatch_from_cache returns before the device is done, a
 flush makes no synchronizing call, the cached step equals the hosted one,
 and a write flushed after a dispatch does not reach that dispatch's frames.
+The serve-size ladder's paths: both kernels at the distinct shapes of
+yolov8s at 640 (batch 16) and of yolov8n's split C2f at 416 (batch 32), NMS
+at K = 128, and an adaptive downshift on the card whose results equal an
+engine of the lower rung's model size.
 
 Needs an NVIDIA GPU and nvcc: marked `cuda` and skipped elsewhere. This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -25,7 +29,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import torch_nms_cases  # noqa: E402
-from test_torch_serving_shapes import SERVING_BIAS_SILU_B8, SERVING_CONV1X1_B8  # noqa: E402
+from test_torch_serving_shapes import (  # noqa: E402
+    S640_BIAS_SILU_B1, S640_CONV1X1_B1, SERVING_BIAS_SILU_B8,
+    SERVING_CONV1X1_B8, SPLIT_N416_BIAS_SILU_B1, SPLIT_N416_CONV1X1_B1)
 from zero_latency_yolo_tpu_torch.ops import (  # noqa: E402
     _build, act_cuda, conv1x1_cuda, nms_cuda)
 
@@ -129,6 +135,40 @@ def _check_wgmma(x, w, b, act):
                          ids=lambda v: str(v))
 def test_conv1x1_tensor_cores_serving_shapes(dev, m, cin, cout, act):
     _check_wgmma(*_mm_inputs(dev, m, cin, cout, seed=m + cin + cout), act)
+
+
+# The distinct 1x1 calls of the ladder's paths at their batch bucket.
+LADDER_CONV1X1 = sorted({(m * 16, cin, cout, act)
+                         for m, cin, cout, act in S640_CONV1X1_B1}
+                        | {(m * 32, cin, cout, act)
+                           for m, cin, cout, act in SPLIT_N416_CONV1X1_B1})
+LADDER_BIAS_SILU = sorted({(16,) + s[1:] for s in S640_BIAS_SILU_B1}
+                          | {(32,) + s[1:] for s in SPLIT_N416_BIAS_SILU_B1})
+
+
+@pytest.mark.parametrize("m,cin,cout,act", LADDER_CONV1X1,
+                         ids=lambda v: str(v))
+def test_conv1x1_tensor_cores_ladder_shapes(dev, m, cin, cout, act):
+    _check_wgmma(*_mm_inputs(dev, m, cin, cout, seed=m + cin + cout), act)
+
+
+@pytest.mark.parametrize("shape", LADDER_BIAS_SILU, ids=lambda s: str(s))
+def test_bias_silu_ladder_shapes(dev, shape):
+    g = torch.Generator().manual_seed(shape[1] * shape[-1])
+    y = (torch.randn(shape, generator=g) * 4).to(dev, torch.bfloat16)
+    b = torch.randn(shape[-1], generator=g).to(dev)
+    n0 = act_cuda.launches
+    got = act_cuda.bias_silu(y, b)
+    torch.cuda.synchronize()
+    assert act_cuda.launches == n0 + 1
+    torch.testing.assert_close(got.float(),
+                               act_cuda.bias_silu_plain(y, b).float(),
+                               atol=1e-5, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("b", [1, 16, 32])
+def test_nms_kernel_exact_at_k128(dev, b):
+    _check_nms(dev, *torch_nms_cases.seeded(128 + b, b, 128))
 
 
 @pytest.mark.parametrize("act", [True, False])
@@ -527,3 +567,46 @@ def test_write_after_dispatch_does_not_reach_it(dev):
     assert _dets(eng.complete(pending)) == _dets(want_old)
     assert _dets(eng.complete(_from_cache(eng, cache, new, ids))) == _dets(
         want_new)
+
+
+def test_adaptive_downshift_on_the_card(dev):
+    """A yolov8p ladder (64, 32) on the card: with an SLO far below the
+    step's latency the engine steps down through its own completions, and
+    its results at 32 equal, to the last bit, those of an engine of model
+    size 32; with the SLO far above, it steps back up."""
+    from zero_latency_yolo_tpu_torch.config import ServerConfig
+    from zero_latency_yolo_tpu_torch.models import yolov8 as ym
+    from zero_latency_yolo_tpu_torch.runtime.engine import InferenceEngine
+
+    def engine(size, ladder):
+        cfg = ServerConfig.from_dict({
+            "model_path": "/nonexistent.npz", "confidence_threshold": 0.25,
+            "detection": {"model_width": size, "model_height": size},
+            "tpu": {"variant": "yolov8p", "num_classes": 4,
+                    "dtype": "bfloat16", "batch_buckets": [2],
+                    "frame_buckets": [[96, 128]], "pre_nms_topk": 64,
+                    "serve_sizes": ladder,
+                    "adaptive_slo_ms": 8.0 if ladder else 0.0}})
+        return InferenceEngine(cfg, params=ym.init_params(
+            0, ym.get_spec("yolov8p", 4)), device="cuda")
+    eng = engine(64, [64, 32])
+    eng.warmup()
+    assert eng._warmed_sizes == (64, 32)
+    reqs = _requests(2, seed=4)
+
+    def drive(until):
+        deadline = time.perf_counter() + 30
+        while not until() and time.perf_counter() < deadline:
+            for r in reqs:
+                r.enqueue_t = time.perf_counter()
+            eng.complete(eng.dispatch(reqs))
+    assert eng.update_adaptive_slo(0.001)
+    drive(lambda: eng._serve_size == 32)
+    assert eng._serve_size == 32 and eng.size_downshifts == 1
+    got = eng.complete(eng.dispatch(reqs))
+    want = engine(32, []).infer_batch(reqs)
+    assert {r.serve_size for r in got} == {32}
+    assert _dets(got) == _dets(want)
+    assert eng.update_adaptive_slo(1e4)
+    drive(lambda: eng._serve_size == 64)
+    assert eng._serve_size == 64 and eng.size_upshifts == 1

@@ -148,9 +148,9 @@ def test_hot_reload_stages_then_swaps_on_the_dispatch_thread(tmp_path):
     placed = []
     real_place = eng_mod.place_params
 
-    def spy(params, device, dtype):
+    def spy(params, device, dtype, **kwargs):
         placed.append(threading.current_thread().name)
-        return real_place(params, device, dtype)
+        return real_place(params, device, dtype, **kwargs)
     eng_mod.place_params = spy
     try:
         watcher = threading.Thread(target=lambda: placed.append(

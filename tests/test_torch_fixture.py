@@ -1,8 +1,9 @@
-"""The port's f32 serving step at 416 px against the JAX package's, through
-the committed fixture tests/torch_fixtures/jax_f32_step_416.npz: the port's
-plain f32 step (CPU) is held to it at the 1e-3 gate of
+"""The port's f32 serving step against the JAX package's, through the
+committed fixtures tests/torch_fixtures/jax_f32_step_416.npz (yolov8n at 416)
+and jax_f32_step_s640.npz (yolov8s at 640 and at its 512 rung): the port's
+plain f32 step (CPU) is held to them at the 1e-3 gate of
 tests/test_model_parity.py:54-63, with the comparison chip_smoke.py uses on
-the card (`fixture_gate`), and the fixture is held to the JAX step it
+the card (`fixture_gate`), and the 416 fixture is held to the JAX step it
 records."""
 
 import importlib.util
@@ -94,3 +95,50 @@ def test_fixture_gate_excuses_only_decisions_on_a_threshold():
     far = chip_smoke.fixture_gate(got, want, 0.1, 0.45)
     assert not far["ok"][0] and "not excused" in far["notes"][0]
     assert all(far["ok"][1:]) and all(far["strict"][1:])
+
+
+def _fixture_s640():
+    return np.load(chip_smoke.FIXTURE_S640)
+
+
+def test_s640_fixture_records_what_made_it():
+    fx = _fixture_s640()
+    cfg = ServerConfig.load(str(chip_smoke.CONFIG_S640),
+                            create_if_missing=False)
+    assert int(fx["task_seed"]) == make_jax_fixture.TASK_SEED_S640
+    assert tuple(fx["game_seeds"]) == make_jax_fixture.GAME_SEEDS_S640
+    assert tuple(fx["rungs"]) == make_jax_fixture.RUNGS_S640 == tuple(
+        cfg.tpu.serve_sizes)
+    assert tuple(fx["task_bucket"]) == make_jax_fixture.TASK_BUCKET_S640
+    assert float(fx["confidence_threshold"]) == cfg.confidence_threshold
+    assert float(fx["nms_threshold"]) == cfg.nms_threshold
+    frames = chip_smoke.fixture_frames_s640(fx)
+    for name, want in make_jax_fixture.frame_sets_s640().items():
+        assert all(np.array_equal(a, b) for a, b in zip(frames[name], want))
+        for rung in make_jax_fixture.RUNGS_S640:
+            assert fx[f"{name}_{rung}"].shape == (len(want), 1 + 6 * 32)
+
+
+@pytest.mark.parametrize("rung", [640, 512])
+def test_plain_f32_step_matches_jax_s640_fixture(rung):
+    """yolov8s of server-16stream-640-s.json in f32 at each rung of its
+    ladder, through dispatch(size=rung) (plain kernel versions on the CPU):
+    both frame sets within the 1e-3 gate of the JAX step, frame by frame."""
+    fx = _fixture_s640()
+    cfg = ServerConfig.load(str(chip_smoke.CONFIG_S640),
+                            create_if_missing=False)
+    cfg.model_path = str(chip_smoke.ROOT / cfg.model_path)
+    eng = pt_engine.InferenceEngine(chip_smoke.fixture_config(cfg, fx),
+                                    device="cpu")
+    assert not eng.simulation and eng.serve_sizes == (640, 512)
+    total = 0
+    for name, frames in chip_smoke.fixture_frames_s640(fx).items():
+        pending = eng.dispatch(chip_smoke.frame_requests(
+            pt_engine.InferenceRequest, frames), size=rung)
+        assert pending.serve_size == rung
+        gate = chip_smoke.fixture_gate(
+            pending.out.numpy(), fx[f"{name}_{rung}"],
+            cfg.confidence_threshold, cfg.nms_threshold)
+        total += sum(gate["counts_jax"])
+        assert all(gate["strict"]), (name, gate["notes"])
+    assert total > 0, "vacuous: no detections"

@@ -15,7 +15,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import torch_nms_cases  # noqa: E402
-from test_torch_serving_shapes import SERVING_BIAS_SILU_B8, SERVING_CONV1X1_B8  # noqa: E402
+from test_torch_serving_shapes import (  # noqa: E402
+    S640_BIAS_SILU_B1, S640_CONV1X1_B1, SERVING_BIAS_SILU_B8,
+    SERVING_CONV1X1_B8, SPLIT_N416_BIAS_SILU_B1, SPLIT_N416_CONV1X1_B1)
 from zero_latency_yolo_tpu_torch.models import yolov8 as ym  # noqa: E402
 from zero_latency_yolo_tpu_torch.models.weights import (  # noqa: E402
     params_from_jax, place_params)
@@ -32,13 +34,14 @@ SMEM_LIMIT = 232448
 
 
 @functools.cache
-def _path_calls(batch: int):
+def _path_calls(batch: int, variant: str = "yolov8n", size: int = 416,
+                c2f: str = "slice"):
     """(1x1 calls as (M, Cin, Cout, act), bias+SiLU input shapes) of one
-    plain f32 forward of yolov8n at 416 px, in the order the step makes
-    them."""
-    spec = ym.get_spec("yolov8n", 4)
+    plain f32 forward (default yolov8n at 416 px), in the order the step
+    makes them."""
+    spec = ym.get_spec(variant, 4)
     params = place_params(params_from_jax(ym.init_params(0, spec)), "cpu",
-                          torch.float32)
+                          torch.float32, c2f_split=(c2f == "split"))
     conv, act = [], []
     saved = ym.conv1x1_bias_act_plain, ym.bias_silu_plain
 
@@ -53,8 +56,8 @@ def _path_calls(batch: int):
     ym.conv1x1_bias_act_plain, ym.bias_silu_plain = rec_conv, rec_act
     try:
         with torch.inference_mode():
-            ym.forward_raw(params, spec, torch.rand(batch, 416, 416, 3),
-                           plain=True)
+            ym.forward_raw(params, spec, torch.rand(batch, size, size, 3),
+                           plain=True, c2f=c2f)
     finally:
         ym.conv1x1_bias_act_plain, ym.bias_silu_plain = saved
     return conv, act
@@ -76,6 +79,43 @@ def test_path_has_the_recorded_calls(batch):
 @pytest.mark.parametrize("batch", BATCHES)
 def test_plan_conv1x1_serving_call(batch, index):
     m, cin, cout, act = _path_calls(batch)[0][index]
+    _check_tensor_core_plan(m, cin, cout)
+
+
+# The serve-size ladder's paths at their largest batch bucket: yolov8s at
+# 640 and its 512 rung (batch 16), yolov8n at 416 and its 320 rung (batch
+# 32, where tpu.c2f="auto" picks the split C2f at 416).
+LADDER_PATHS = [("yolov8s", 640, 16, "slice", S640_CONV1X1_B1,
+                 S640_BIAS_SILU_B1),
+                ("yolov8s", 512, 16, "slice", None, None),
+                ("yolov8n", 416, 32, "split", SPLIT_N416_CONV1X1_B1,
+                 SPLIT_N416_BIAS_SILU_B1),
+                ("yolov8n", 320, 32, "slice", None, None)]
+
+
+@pytest.mark.parametrize("variant,size,batch,c2f,conv_b1,act_b1",
+                         LADDER_PATHS, ids=lambda v: str(v)[:12])
+def test_ladder_paths_plan_onto_the_tensor_cores(variant, size, batch, c2f,
+                                                 conv_b1, act_b1):
+    """Each 1x1 call of a ladder path plans onto the tensor cores in bf16
+    within the 32-bit indexing guard, and each bias+SiLU pass onto the
+    vector kernel; the calls are the recorded ones (24 + 39 a step in the
+    slice form, 50 + 47 in the split form: cv1 as two convs and cv2 as
+    2 + n a block, one tail a block)."""
+    conv, act = _path_calls(1, variant, size, c2f)
+    assert (len(conv), len(act)) == ((50, 47) if c2f == "split" else (24, 39))
+    if conv_b1 is not None:
+        assert conv == conv_b1 and act == act_b1
+    for m, cin, cout, _ in conv:
+        m *= batch
+        assert m < 2 ** 31 and m * cout < 2 ** 31 and cin * cout < 2 ** 31
+        _check_tensor_core_plan(m, cin, cout)
+    for shape in act:
+        n, c = batch * int(np.prod(shape)), shape[-1]
+        assert act_cuda.plan_bias_silu(n, c, 2, True, WAVES[0]).vec
+
+
+def _check_tensor_core_plan(m, cin, cout):
     assert conv1x1_cuda.plan_conv1x1(m, cin, cout, torch.float32).route == "simt"
     plan = conv1x1_cuda.plan_conv1x1(m, cin, cout, torch.bfloat16,
                                      sms=H100_SMS)

@@ -424,7 +424,7 @@ def test_config_update_applies_thresholds(harness):
 def test_config_update_refusal_is_echoed(harness):
     """A refused CONFIG_UPDATE answers with an ERROR carrying the reason:
     a min_serve_size above the model size, and an adaptive SLO, which needs
-    a serve-size ladder the port has not got."""
+    a warmed serve-size ladder (this server's config has none)."""
     c = _client(harness.port)
     try:
         c.connect()

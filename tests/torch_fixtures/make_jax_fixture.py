@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Write the JAX engine's f32 serving step at 416 px as a fixture for the
-PyTorch port: `jax_f32_step_416.npz` beside this file.
+"""Write the JAX engine's f32 serving steps as fixtures for the PyTorch port,
+beside this file: `jax_f32_step_416.npz` (yolov8n at 416) and
+`jax_f32_step_s640.npz` (yolov8s at 640 and at its 512 rung).
 
-    JAX_PLATFORMS=cpu python tests/torch_fixtures/make_jax_fixture.py
+    JAX_PLATFORMS=cpu python tests/torch_fixtures/make_jax_fixture.py [--only 416|s640]
 
 Runs the JAX package's `InferenceEngine` on the CPU in f32, through the
 configured `letterbox_mxu` preprocess, with `artifacts/yolov8n_trained_416.npz`
@@ -18,6 +19,13 @@ The file holds each batch's packed (8, 1 + 6*32) f32 output (`nms.pack_outputs`
 layout), the frame seeds and the thresholds. The port's f32 step is held to
 it at the 1e-3 gate of tests/test_model_parity.py:54-63: on the CPU by
 tests/test_torch_fixture.py, on the card by chip_smoke.py (NumPy only there).
+
+The yolov8s fixture is the same for `configs/examples/server-16stream-640-s.json`
+with `artifacts/yolov8s_trained_ms640.npz`, at batch 4: "task" is
+`task_frames(4, 640, seed=640)` in a 640x640 bucket, "game" is
+`synthetic_frame(800, 600, seed=s, t=0.3 * s)` for s in 20..23 in the 608x800
+bucket, each through the step at 640 and at 512 (keys task_640, game_640,
+task_512, game_512).
 """
 
 from __future__ import annotations
@@ -43,6 +51,13 @@ GAME_SEEDS = tuple(range(4, 12))
 # task frames take an identity letterbox.
 TASK_BUCKET = (416, 416)
 
+OUT_S640 = HERE / "jax_f32_step_s640.npz"
+CONFIG_S640 = REPO / "configs" / "examples" / "server-16stream-640-s.json"
+TASK_SEED_S640 = 640
+GAME_SEEDS_S640 = tuple(range(20, 24))
+TASK_BUCKET_S640 = (640, 640)
+RUNGS_S640 = (640, 512)
+
 
 def frame_sets():
     """{name: list of (h, w, 3) uint8 frames} for the two batches."""
@@ -52,50 +67,80 @@ def frame_sets():
                      for s in GAME_SEEDS]}
 
 
-def config_dict() -> dict:
-    """The deployed config in f32, with the 416x416 bucket added."""
-    cfg = json.loads(CONFIG.read_text())
+def frame_sets_s640():
+    """{name: list of (h, w, 3) uint8 frames} for the yolov8s fixture."""
+    from chip_smoke import synthetic_frame, task_frames
+    return {"task": list(task_frames(4, 640, seed=TASK_SEED_S640)),
+            "game": [synthetic_frame(800, 600, seed=s, t=0.3 * s)
+                     for s in GAME_SEEDS_S640]}
+
+
+def config_dict(path: Path = CONFIG, task_bucket=TASK_BUCKET) -> dict:
+    """A config file's config in f32, with the task bucket added in front."""
+    cfg = json.loads(path.read_text())
     cfg["model_path"] = str(REPO / cfg["model_path"])
     cfg["tpu"]["dtype"] = "float32"
-    cfg["tpu"]["frame_buckets"] = ([list(TASK_BUCKET)]
+    cfg["tpu"]["frame_buckets"] = ([list(task_bucket)]
                                    + cfg["tpu"]["frame_buckets"])
     return cfg
 
 
-def jax_packed() -> dict:
-    """{name: packed (8, 193) f32} of the JAX engine's f32 step."""
+def jax_packed(cfg_dict=None, sets=None, sizes=(None,)) -> dict:
+    """{name: packed (B, 193) f32} of the JAX engine's f32 step, one entry a
+    frame set and serve size (named "<set>_<size>" when a size is given);
+    by default the 416 fixture's."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     from zero_latency_yolo_tpu.config import ServerConfig
     from zero_latency_yolo_tpu.runtime.engine import (InferenceEngine,
                                                       InferenceRequest)
-    cfg = ServerConfig.from_dict(config_dict())
+    cfg = ServerConfig.from_dict(cfg_dict or config_dict())
     assert cfg.tpu.preprocess == "letterbox_mxu", cfg.tpu.preprocess
     engine = InferenceEngine(cfg)
     assert not engine.simulation, f"{cfg.model_path} did not load"
     packed = {}
-    for name, frames in frame_sets().items():
+    for name, frames in (sets or frame_sets()).items():
         reqs = [InferenceRequest(client_id=i + 1, frame_id=i, timestamp=i,
                                  width=f.shape[1], height=f.shape[0], data=f)
                 for i, f in enumerate(frames)]
-        out = np.asarray(engine.dispatch(reqs).out, np.float32)
-        assert out.shape == (8, 1 + 6 * 32), out.shape
-        packed[name] = out
+        for size in sizes:
+            out = np.asarray(engine.dispatch(reqs, size=size).out, np.float32)
+            assert out.shape == (len(frames), 1 + 6 * 32), out.shape
+            packed[name if size is None else f"{name}_{size}"] = out
     return packed
 
 
 def main() -> None:
-    packed = jax_packed()
-    for name, out in packed.items():
-        print(f"{name}: counts {out[:, 0].astype(int).tolist()}", flush=True)
-    cfg = config_dict()
-    np.savez_compressed(
-        OUT, task=packed["task"], game=packed["game"],
-        task_seed=np.int64(TASK_SEED), game_seeds=np.array(GAME_SEEDS),
-        confidence_threshold=np.float64(cfg["confidence_threshold"]),
-        nms_threshold=np.float64(cfg["nms_threshold"]),
-        task_bucket=np.array(TASK_BUCKET))
-    print(f"wrote {OUT.relative_to(REPO)} ({OUT.stat().st_size} bytes)")
+    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv \
+        else None
+    if only in (None, "416"):
+        packed = jax_packed()
+        for name, out in packed.items():
+            print(f"{name}: counts {out[:, 0].astype(int).tolist()}",
+                  flush=True)
+        cfg = config_dict()
+        np.savez_compressed(
+            OUT, task=packed["task"], game=packed["game"],
+            task_seed=np.int64(TASK_SEED), game_seeds=np.array(GAME_SEEDS),
+            confidence_threshold=np.float64(cfg["confidence_threshold"]),
+            nms_threshold=np.float64(cfg["nms_threshold"]),
+            task_bucket=np.array(TASK_BUCKET))
+        print(f"wrote {OUT.relative_to(REPO)} ({OUT.stat().st_size} bytes)")
+    if only in (None, "s640"):
+        cfg = config_dict(CONFIG_S640, TASK_BUCKET_S640)
+        packed = jax_packed(cfg, frame_sets_s640(), RUNGS_S640)
+        for name, out in packed.items():
+            print(f"{name}: counts {out[:, 0].astype(int).tolist()}",
+                  flush=True)
+        np.savez_compressed(
+            OUT_S640, **packed, task_seed=np.int64(TASK_SEED_S640),
+            game_seeds=np.array(GAME_SEEDS_S640),
+            rungs=np.array(RUNGS_S640),
+            confidence_threshold=np.float64(cfg["confidence_threshold"]),
+            nms_threshold=np.float64(cfg["nms_threshold"]),
+            task_bucket=np.array(TASK_BUCKET_S640))
+        print(f"wrote {OUT_S640.relative_to(REPO)} "
+              f"({OUT_S640.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":

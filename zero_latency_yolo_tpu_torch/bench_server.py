@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Loopback load on the port's UDP server on one NVIDIA GPU: the deployed
 config (`configs/examples/server-cs16-416.json`: yolov8n, 416 px, bf16,
-real weights) served by `DetectionServer` in this process, with its device
-frame cache (the default) or without it, and clients streaming raw frames
-to it over loopback UDP, from threads of this process or from one child
-process.
+real weights), or another of `configs/examples/` (`--config`), served by
+`DetectionServer` in this process, with its device frame cache (the
+default) or without it, and clients streaming raw frames to it over
+loopback UDP, from threads of this process or from one child process.
 
     python3 zero_latency_yolo_tpu_torch/bench_server.py \\
+        [--config configs/examples/server-64stream-adaptive.json] \\
         [--clients-in threads|process] [--clients 8] [--fps 60] \\
         [--seconds 4] [--native-transport] [--cache | --no-cache] [--label L]
 
@@ -33,7 +34,10 @@ the queued writes and the gather: `lock_ms_p50` / `lock_ms_p90`), the
 device's busy time and idle share over the last second of the load
 (torch.profiler), the server socket's granted receive buffer (`rcvbuf`;
 None on the native transport), and the machine's IP and UDP drop counters
-over the load with the loopback MTU (`net`).
+over the load with the loopback MTU (`net`), and the results by the serve
+size they were served at (`serve_sizes`) with the engine's size switches
+(`size_downshifts`, `size_upshifts`; a config with a tpu.serve_sizes ladder
+and tpu.adaptive_slo_ms steps down under load).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import collections
+import contextlib
 import json
 import socket
 import statistics
@@ -108,11 +113,12 @@ def http_get(port: int, path: str) -> tuple:
 RECV_BUFFER_BYTES = 64 << 20
 
 
-def deployed_config(tracking: bool = True, native_transport: bool = False):
-    """The deployed config on free loopback ports, tracking on or off, the
-    asyncio or the native recvmmsg transport."""
+def deployed_config(tracking: bool = True, native_transport: bool = False,
+                    config: Path = CONFIG):
+    """A config file (default the deployed one) on free loopback ports,
+    tracking on or off, the asyncio or the native recvmmsg transport."""
     from zero_latency_yolo_tpu_torch.config import ServerConfig
-    d = json.loads(CONFIG.read_text())
+    d = json.loads(Path(config).read_text())
     d["model_path"] = str(ROOT / d["model_path"])
     d["port"] = free_port()
     d["web_port"] = free_port(socket.SOCK_STREAM)
@@ -233,16 +239,25 @@ def warm_profiler(torch) -> None:
         (x @ x).sum().item()
 
 
-def device_idle_share(torch, seconds: float) -> tuple:
+def device_idle_share(torch, seconds: float, gate=None) -> tuple:
     """(busy ms, wall ms, idle share or None) of the device over `seconds`
-    of whatever runs meanwhile: torch.profiler's kernel and copy time."""
+    of whatever runs meanwhile: torch.profiler's kernel and copy time.
+    `gate`, a lock every engine call of the load holds, is held while the
+    profiler starts and stops: stopping it while the batcher thread was
+    inside an operator crashed the process (a segmentation fault in the
+    profiler's stop, in 3 of 20 loads of the yolov8s config on an
+    H100)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        time.sleep(seconds)
-        wall = (time.perf_counter() - t0) * 1e3
+    gate = gate or contextlib.nullcontext()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    with gate:
+        prof.start()
+    t0 = time.perf_counter()
+    time.sleep(seconds)
+    wall = (time.perf_counter() - t0) * 1e3
+    with gate:
+        prof.stop()
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA) / 1e3
     return busy, wall, (max(0.0, 1.0 - busy / wall) if busy > 0 else None)
@@ -257,16 +272,29 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
     3.0 s, while every client is connected; its result is returned under
     "during"."""
     engine, cache = server.engine, server.device_cache
-    batch_sizes = collections.Counter()
+    batch_sizes, served_at = collections.Counter(), collections.Counter()
     dispatch_ms, lock_ms = [], []
     dispatch, dispatch_gathered = engine.dispatch, engine.dispatch_gathered
+    complete_many = engine.complete_many
     dispatch_with = cache.dispatch_with if cache is not None else None
+
+    # Every engine call the batcher makes during the load holds `gate`, so
+    # that the profiler starts and stops between them (device_idle_share).
+    gate = threading.RLock()
+
+    def counted(pendings):
+        with gate:
+            out = complete_many(pendings)
+        for results in out:
+            served_at.update(r.serve_size for r in results)
+        return out
 
     def timing(fn, out, count):
         def timed(first, *args, **kwargs):
             t = time.perf_counter()
             try:
-                return fn(first, *args, **kwargs)
+                with gate:
+                    return fn(first, *args, **kwargs)
             finally:
                 out.append((time.perf_counter() - t) * 1e3)
                 if count:  # first: the batch's requests
@@ -287,6 +315,7 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
             clients = Clients(server.port, n)
         engine.dispatch = timing(dispatch, dispatch_ms, True)
         engine.dispatch_gathered = timing(dispatch_gathered, dispatch_ms, True)
+        engine.complete_many = counted
         if cache is not None:
             cache.dispatch_with = timing(dispatch_with, lock_ms, False)
         transport = server._transport
@@ -313,7 +342,7 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
         lat = server.detect_latency.snapshot()
         seen = during() if during is not None else None
         time.sleep(max(t0 + seconds - 0.95 - time.perf_counter(), 0))
-        busy, wall, idle = device_idle_share(torch, 0.9)
+        busy, wall, idle = device_idle_share(torch, 0.9, gate)
         if child is not None:
             out = json.loads(child.stdout.readline())
             child.wait(timeout=60)
@@ -332,6 +361,7 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
             results = clients.results()
     finally:
         engine.dispatch, engine.dispatch_gathered = dispatch, dispatch_gathered
+        engine.complete_many = complete_many
         if cache is not None:
             cache.dispatch_with = dispatch_with
         if clients is not None:
@@ -363,6 +393,9 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
         dispatch_ms_p50=d50, dispatch_ms_p90=d90,
         lock_ms_p50=l50, lock_ms_p90=l90,
         busy_ms=busy, wall_ms=wall, idle_share=idle, rcvbuf=rcvbuf,
+        serve_sizes=dict(sorted(served_at.items())),
+        size_downshifts=int(st["engine"]["size_downshifts"]),
+        size_upshifts=int(st["engine"]["size_upshifts"]),
         net={k: v - net0.get(k, 0) if k != "lo_mtu" else v
              for k, v in net1.items()})
 
@@ -380,6 +413,8 @@ def main() -> None:
                     default=True,
                     help="serve with the device frame cache (the server's "
                          "use_device_cache; default on)")
+    ap.add_argument("--config", default=str(CONFIG),
+                    help="a config file (default: the deployed one)")
     ap.add_argument("--label", default="")
     ap.add_argument("--child", nargs=4, metavar=("PORT", "N", "FPS", "SECONDS"),
                     help=argparse.SUPPRESS)
@@ -397,7 +432,8 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     warm_profiler(torch)
-    cfg = deployed_config(native_transport=args.native_transport)
+    cfg = deployed_config(native_transport=args.native_transport,
+                          config=Path(args.config))
     srv = ServerThread(DetectionServer(
         cfg, device="cuda", use_device_cache=args.cache)).start(warmup=True)
     try:
@@ -409,6 +445,7 @@ def main() -> None:
                       "device": smi.stdout.strip().splitlines()[0],
                       "native_transport": args.native_transport,
                       "cache": args.cache,
+                      "config": Path(args.config).name,
                       "load": load}), flush=True)
 
 

@@ -185,7 +185,7 @@ class TpuConfig:
     variant: str = "yolov8n"
     # Preprocess implementation: "letterbox_mxu" (interpolation-matrix
     # matmuls), "letterbox" (gathers), or "stretch" (reference-compatible
-    # nearest-neighbor stretch). The port implements letterbox_mxu only.
+    # nearest-neighbor stretch).
     preprocess: str = "letterbox_mxu"
     # The next three name experiments of the JAX package's TPU kernels. They
     # have no effect in the PyTorch port, which always runs its own kernels.
@@ -193,30 +193,29 @@ class TpuConfig:
     act: str = "auto"
     # Serving-layout experiments of the JAX package:
     # stem="s2d": letterbox emits space-to-depth (S/2, S/2, 12) directly and
-    # the stem runs as a k2 s1 conv (not ported: the engine raises).
+    # the stem runs as a k2 s1 conv. Needs a letterbox preprocess.
     stem: str = "conv"
     # dot1x1=True: k1 s1 convs via dot_general (no effect in the port, whose
     # k1 s1 convs always run as a matmul kernel).
     dot1x1: bool = False
     # select="perlevel": pre-NMS candidate top-k per FPN level before the
-    # cross-level concat (not ported: the engine raises). "concat" = the
-    # global top-k.
+    # cross-level concat. "concat" = the global top-k.
     select: str = "concat"
     # conv1x1: a TPU kernel experiment of the JAX package (no effect here).
     conv1x1: str = "xla"
-    # c2f="split": C2f without the channel slice/concat (not ported: the
-    # engine raises). "auto" and "slice" serve the slice form.
+    # c2f="split": C2f without the channel slice/concat; "slice" the slice
+    # form; "auto" split only where the JAX package picks it (runtime/
+    # engine.py resolve_c2f: yolov8n at 416 in bf16, batch 32).
     c2f: str = "auto"
     # Dispatched-but-unread batch depth the scheduler keeps in flight.
     max_inflight: int = 2
     # Host-path measurement harness: > 0 replaces the device step with a
-    # fixed-duration fake step of this many ms (not ported: the engine
-    # raises). Never set in production.
+    # fixed-duration fake step of this many ms. Never set in production.
     synthetic_step_ms: float = 0.0
     # Per-batch-bucket fake-step durations (ms) for the harness above.
     synthetic_step_profile: Dict[str, float] = field(default_factory=dict)
-    # Serve-size ladder for adaptive resolution, e.g. [416, 320] (not
-    # ported: the engine raises). Empty = fixed detection.model_width only.
+    # Serve-size ladder for adaptive resolution, e.g. [416, 320]. Empty =
+    # fixed detection.model_width only.
     serve_sizes: tuple = ()
     # Per-serve-size synthetic ladders ({"416": {...}, "320": {...}}).
     synthetic_step_profiles: Dict[str, Dict[str, float]] = field(

@@ -1,28 +1,37 @@
 """Weight files and the device form of the parameters.
 
-The port reads the JAX package's native `.npz` files: a flat "m0/cv1/w"-keyed
-archive of the `m0`..`m22` tree with HWIO kernels. The tree stays in NumPy
-until `params_from_jax` turns it into the device form that
-`models/yolov8.py` runs (BN folded, OIHW kernels for `F.conv2d`, a (Cin, Cout)
-matrix for each 1x1 conv), and `place_params` moves that to a device.
+The port reads what the JAX package reads, into the same NumPy tree (the
+`m0`..`m22` tree with HWIO kernels):
+
+- the native `.npz`: a flat "m0/cv1/w"-keyed archive of that tree;
+- ultralytics PyTorch state_dicts in `.pt` / `.pth` files ("model.0.conv.weight",
+  BN statistics folded), loaded with `torch.load(weights_only=True)`: a file
+  holding pickled objects is refused unless ZLT_TRUST_PICKLE=1;
+- `.onnx` files exported by ultralytics (Conv+BN fused before export), read
+  by a protobuf walker in NumPy: no `onnx` package.
+
+The tree stays in NumPy until `params_from_jax` turns it into the device form
+that `models/yolov8.py` runs (BN folded, OIHW kernels for `F.conv2d`, a (Cin,
+Cout) matrix for each 1x1 conv), and `place_params` moves that to a device.
 
 If the configured model file is missing or unreadable the engine falls back to
 simulation mode (reference behavior: src/inference/onnx_engine.cpp:70-75).
-The `.pt` and `.onnx` readers of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
 
 import hashlib
 import logging
-from typing import Any, Dict, List, Tuple
+import os
+import struct
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.conv1x1_cuda import k_major
 from .yolov8 import (VARIANTS, ModelSpec, _depth, fold_batchnorm, get_spec,
-                     init_params)
+                     init_params, stem_s2d_weights)
 
 Params = Dict[str, Any]
 
@@ -75,6 +84,19 @@ def load_params(path: str) -> Params:
         return unflatten({k: z[k] for k in z.files})
 
 
+def load_artifact(path: str) -> Params:
+    """Load a weight file by its extension: .npz (native), .pt/.pth
+    (ultralytics checkpoint or state_dict), .onnx (exported graph)."""
+    if path.endswith(".npz"):
+        return load_params(path)
+    if path.endswith((".pt", ".pth")):
+        return load_torch_checkpoint(path)
+    if path.endswith(".onnx"):
+        return from_onnx(path)
+    raise ValueError(f"unknown weight format: {path} "
+                     "(expected .npz, .pt/.pth or .onnx)")
+
+
 def file_sha256(path: str) -> str:
     """Model-file hash (reference src/inference/onnx_engine.cpp:1087-1124)."""
     h = hashlib.sha256()
@@ -82,6 +104,206 @@ def file_sha256(path: str) -> str:
         for chunk in iter(lambda: f.read(1 << 20), b""):
             h.update(chunk)
     return h.hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# ultralytics state_dict conversion
+# ---------------------------------------------------------------------------
+
+def _torch_to_hwio(w: np.ndarray) -> np.ndarray:
+    return np.transpose(w, (2, 3, 1, 0))  # OIHW -> HWIO
+
+
+def from_ultralytics_state_dict(sd: Dict[str, np.ndarray]) -> Params:
+    """Convert an ultralytics DetectionModel state_dict (NumPy values, keys
+    like 'model.0.conv.weight' / 'model.22.cv2.0.1.bn.running_mean') into
+    the tree. BN blocks are folded; the DFL conv (fixed arange weights) is
+    dropped, since the decode computes the expectation directly."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, val in sd.items():
+        if not key.startswith("model."):
+            continue
+        parts = key.split(".")
+        rest = parts[2:]
+        if rest[:1] == ["dfl"]:
+            continue
+        mapped = _map_ultra_path(rest)
+        if mapped is None:
+            continue
+        arr = np.asarray(val)
+        if mapped[-1] == "w" and arr.ndim == 4:
+            arr = _torch_to_hwio(arr)
+        flat[f"m{parts[1]}/" + "/".join(mapped)] = arr
+    return fold_batchnorm(unflatten(flat))
+
+
+def _map_ultra_path(rest: List[str]) -> Optional[List[str]]:
+    """ultralytics module path -> the tree's path.
+
+    Conv block: conv.weight -> w; bn.{weight,bias,running_mean,running_var}
+    C2f:        cv1/cv2 conv blocks, m.<i>.cv1/cv2
+    Detect:     cv2.<lvl>.<j>.(conv|bn|weight|bias), j=2 is the bare Conv2d
+    """
+    bn_map = {"weight": "gamma", "bias": "beta",
+              "running_mean": "mean", "running_var": "var"}
+    out: List[str] = []
+    i = 0
+    while i < len(rest):
+        tok = rest[i]
+        if tok == "conv":
+            out.append("w" if rest[i + 1] == "weight" else "b")
+            return out
+        if tok == "bn":
+            stat = bn_map.get(rest[i + 1])
+            if stat is None:
+                return None  # num_batches_tracked
+            out.extend(["bn", stat])
+            return out
+        if tok == "weight":  # bare Conv2d at the detect head's tip
+            out.append("w")
+            return out
+        if tok == "bias":
+            out.append("b")
+            return out
+        out.append(tok)
+        i += 1
+    return None
+
+
+def load_torch_checkpoint(path: str) -> Params:
+    """The tree from a `.pt`/`.pth` file: a state_dict, or a checkpoint
+    holding a module. Only tensors are unpickled unless ZLT_TRUST_PICKLE=1:
+    the dashboard's model upload and the hot-reload watcher load these files,
+    so unpickling arbitrary objects by default would run whatever code an
+    uploaded file carries."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as e:  # pickled objects present
+        if os.environ.get("ZLT_TRUST_PICKLE") == "1":
+            obj = torch.load(path, map_location="cpu", weights_only=False)
+        else:
+            raise ValueError(
+                f"{path} contains pickled objects (a full ultralytics "
+                f"checkpoint?). Load only tensor checkpoints by default; "
+                f"export a state_dict / .onnx instead, or set "
+                f"ZLT_TRUST_PICKLE=1 if you trust this file. ({e})") from e
+    if hasattr(obj, "state_dict"):
+        sd = obj.state_dict()
+    elif isinstance(obj, dict) and "model" in obj and hasattr(
+            obj["model"], "state_dict"):
+        sd = obj["model"].float().state_dict()
+    elif isinstance(obj, dict):
+        sd = obj
+    else:
+        raise ValueError(f"unsupported checkpoint object in {path}")
+    return from_ultralytics_state_dict(
+        {k: v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+         for k, v in sd.items()})
+
+
+# ---------------------------------------------------------------------------
+# ONNX initializers (protobuf wire format, NumPy only)
+# ---------------------------------------------------------------------------
+
+def _read_varint(buf: memoryview, pos: int) -> Tuple[int, int]:
+    result = shift = 0
+    while True:
+        b = buf[pos]
+        pos += 1
+        result |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return result, pos
+        shift += 7
+
+
+def _walk_fields(buf: memoryview):
+    pos = 0
+    while pos < len(buf):
+        tag, pos = _read_varint(buf, pos)
+        field, wire = tag >> 3, tag & 7
+        if wire == 0:
+            val, pos = _read_varint(buf, pos)
+            yield field, wire, val
+        elif wire == 1:
+            yield field, wire, bytes(buf[pos:pos + 8])
+            pos += 8
+        elif wire == 2:
+            ln, pos = _read_varint(buf, pos)
+            yield field, wire, buf[pos:pos + ln]
+            pos += ln
+        elif wire == 5:
+            yield field, wire, bytes(buf[pos:pos + 4])
+            pos += 4
+        else:
+            raise ValueError(f"unsupported protobuf wire type {wire}")
+
+
+_ONNX_DTYPES = {1: np.float32, 2: np.uint8, 3: np.int8, 6: np.int32,
+                7: np.int64, 10: np.float16, 11: np.float64}
+
+
+def _parse_tensor(buf: memoryview) -> Tuple[str, np.ndarray]:
+    dims: List[int] = []
+    dtype = np.float32
+    name = ""
+    raw = b""
+    floats: List[float] = []
+    for field, wire, val in _walk_fields(buf):
+        if field == 1 and wire == 0:
+            dims.append(val)
+        elif field == 2 and wire == 0:
+            dtype = _ONNX_DTYPES.get(val, np.float32)
+        elif field == 4:
+            if wire == 2:  # packed float_data
+                floats.extend(struct.unpack(f"<{len(val) // 4}f", bytes(val)))
+            elif wire == 5:
+                floats.append(struct.unpack("<f", val)[0])
+        elif field == 8 and wire == 2:
+            name = bytes(val).decode("utf-8")
+        elif field == 9 and wire == 2:
+            raw = bytes(val)
+    if raw:
+        arr = np.frombuffer(raw, dtype=dtype).reshape(dims)
+    elif floats:
+        arr = np.asarray(floats, dtype=np.float32).reshape(dims)
+    else:
+        arr = np.zeros(dims, dtype=dtype)
+    return name, arr
+
+
+def read_onnx_initializers(path: str) -> Dict[str, np.ndarray]:
+    """{name: array} of the graph's initializers."""
+    with open(path, "rb") as f:
+        data = f.read()
+    tensors: Dict[str, np.ndarray] = {}
+    for field, wire, val in _walk_fields(memoryview(data)):
+        if field == 7 and wire == 2:  # ModelProto.graph
+            for gfield, gwire, gval in _walk_fields(val):
+                if gfield == 5 and gwire == 2:  # GraphProto.initializer
+                    name, arr = _parse_tensor(gval)
+                    tensors[name] = arr
+    return tensors
+
+
+def from_onnx(path: str) -> Params:
+    """The tree from an ultralytics-exported .onnx (Conv+BN fused)."""
+    tensors = read_onnx_initializers(path)
+    flat: Dict[str, np.ndarray] = {}
+    for name, arr in tensors.items():
+        if not name.startswith("model.") or ".dfl." in name:
+            continue
+        parts = name.split(".")
+        mapped = _map_ultra_path(parts[2:])
+        if mapped is None:
+            continue
+        if mapped[-1] == "w" and arr.ndim == 4:
+            arr = _torch_to_hwio(arr)
+        flat[f"m{parts[1]}/" + "/".join(mapped)] = arr
+    if not flat:
+        raise ValueError(
+            f"{path}: no recognizable YOLOv8 initializers "
+            "(placeholder or graph-optimized export)")
+    return unflatten(flat)
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +387,8 @@ def infer_spec_from_params(params: Params) -> ModelSpec:
 
 def load_model(path: str, variant: str = "yolov8n", num_classes: int = 4,
                seed: int = 0) -> Tuple[Params, ModelSpec, bool]:
-    """Load a `.npz` NumPy tree. Returns (params, spec, simulation).
+    """Load a `.npz`, `.pt`/`.pth` or `.onnx` file into the NumPy tree.
+    Returns (params, spec, simulation).
 
     On a geometry mismatch the spec is inferred from the file. On any failure
     returns random-init params with simulation=True, mirroring the
@@ -173,10 +396,7 @@ def load_model(path: str, variant: str = "yolov8n", num_classes: int = 4,
     """
     spec = get_spec(variant, num_classes)
     try:
-        if not path.endswith(".npz"):
-            raise ValueError(f"unsupported weight format: {path} (the "
-                             "PyTorch port reads .npz only)")
-        params = load_params(path)
+        params = load_artifact(path)
         mismatch = spec_shape_mismatch(params, spec)
         if mismatch:
             inferred = infer_spec_from_params(params)
@@ -206,8 +426,8 @@ def params_from_jax(tree: Params) -> Params:
         b = torch.from_numpy(np.array(node["b"], np.float32))
         if w.shape[0] == 1 and w.shape[1] == 1:
             return {"w_mm": torch.from_numpy(np.array(w[0, 0])), "b": b}
-        return {"w": torch.from_numpy(np.ascontiguousarray(
-            w.transpose(3, 2, 0, 1))), "b": b}
+        return {"w": torch.from_numpy(np.array(w.transpose(3, 2, 0, 1),
+                                                order="C")), "b": b}
 
     def walk(node):
         if isinstance(node, dict):
@@ -226,15 +446,20 @@ def params_from_jax(tree: Params) -> Params:
     return walk(tree)
 
 
-def place_params(params: Params, device, dtype: torch.dtype) -> Params:
+def place_params(params: Params, device, dtype: torch.dtype,
+                 c2f_split: bool = False, stem_s2d: bool = False) -> Params:
     """Copy device-form params to `device`: kernels in `dtype` (channels-last
     OIHW, so convs write NHWC; a 1x1 matrix K-major, the layout the
-    tensor-core 1x1 kernel reads, laid out here once), biases in f32."""
-    def walk(node):
-        if isinstance(node, list):
-            return [walk(v) for v in node]
-        if "b" not in node:
-            return {k: walk(v) for k, v in node.items()}
+    tensor-core 1x1 kernel reads, laid out here once), biases in f32.
+
+    c2f_split: also lay out each C2f block's pieces for the split form
+    (models/yolov8.py `_c2f`), once: `cv1_pieces`, the two column halves of
+    cv1 with their biases, and `cv2_pieces`, cv2's row blocks of c = Cout/2
+    input channels with an f32 zero bias each (the 1x1 kernel takes a bias).
+    Every piece is its own contiguous K-major matrix.
+    stem_s2d: also place m0's kernel as the k2 s1 kernel of the
+    space-to-depth stem (`w_s2d`, models/yolov8.py `_stem_s2d`)."""
+    def conv(node):
         out = {"b": node["b"].to(device=device, dtype=torch.float32)}
         if "w_mm" in node:
             out["w_mm"] = k_major(node["w_mm"].to(device=device, dtype=dtype))
@@ -242,4 +467,30 @@ def place_params(params: Params, device, dtype: torch.dtype) -> Params:
             out["w"] = node["w"].to(device=device, dtype=dtype).contiguous(
                 memory_format=torch.channels_last)
         return out
-    return walk(params)
+
+    def pieces(node):
+        w1, b1 = node["cv1"]["w_mm"], node["cv1"]["b"]
+        c = w1.shape[1] // 2
+        w2, b2 = node["cv2"]["w_mm"], node["cv2"]["b"]
+        zero = torch.zeros_like(b2)
+        return {"cv1_pieces": [conv({"w_mm": w1[:, :c], "b": b1[:c]}),
+                               conv({"w_mm": w1[:, c:], "b": b1[c:]})],
+                "cv2_pieces": [conv({"w_mm": w2[i * c:(i + 1) * c], "b": zero})
+                               for i in range(w2.shape[0] // c)]}
+
+    def walk(node):
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if "b" in node:
+            return conv(node)
+        out = {k: walk(v) for k, v in node.items()}
+        if c2f_split and "m" in node and "w_mm" in node["cv1"]:
+            out.update(pieces(node))
+        return out
+
+    placed = walk(params)
+    if stem_s2d:
+        placed["m0"]["w_s2d"] = stem_s2d_weights(
+            params["m0"]["w"].to(device=device, dtype=dtype)).contiguous(
+                memory_format=torch.channels_last)
+    return placed

@@ -19,6 +19,11 @@ functions, names and parameter layout:
   versions instead (the reference the kernels are checked against).
 - In bf16 the kernels add the bias and apply SiLU in f32 registers and round
   once; the JAX package's bf16 serving path does the tail in bf16.
+- The JAX package's serving-layout switches: `c2f="split"` (C2f without the
+  channel slice and concat, over weight pieces `place_params` lays out once),
+  `stem="s2d"` (the stem as a k2 s1 conv over the space-to-depth letterbox)
+  and the per-level decode (`forward_decoded_levels`). `dot1x1` is accepted
+  and does nothing: every k1 s1 conv already runs as the 1x1 matmul kernel.
 
 Architecture (ultralytics yolov8.yaml): stem + C2f stages + SPPF backbone,
 PAN-FPN neck, decoupled anchor-free detect head with DFL (reg_max=16),
@@ -261,14 +266,37 @@ def _bottleneck(p: Params, x: torch.Tensor, shortcut: bool, cv) -> torch.Tensor:
     return x + y if shortcut else y
 
 
-def _c2f(p: Params, x: torch.Tensor, shortcut: bool, cv) -> torch.Tensor:
-    """C2f block in the slice form (channel slice of cv1, concat into cv2)."""
-    y = cv(p["cv1"], x)
-    c = y.shape[-1] // 2
-    ys = [y[..., :c], y[..., c:]]
+def _c2f(p: Params, x: torch.Tensor, shortcut: bool, cv,
+         split: bool = False, plain: bool = False) -> torch.Tensor:
+    """C2f block. The slice form takes a channel slice of cv1 and concats
+    the pieces into cv2. split=True (tpu.c2f="split") runs cv1 as two
+    half-width 1x1 convs and cv2 as a sum of per-piece 1x1 convs without
+    bias or SiLU, then silu(sum + b) through the bias+SiLU kernel: the same
+    contractions over weight pieces, so the result matches up to the
+    rounding of the partial sums. The pieces are laid out once by
+    `models/weights.py` `place_params(c2f_split=True)`, each K-major and
+    contiguous (a column slice of a K-major matrix is not, and the
+    tensor-core kernel's TMA needs 16-byte rows). The JAX package falls back
+    to the slice form on unfolded (BN) params; the port folds BN at load,
+    so that case does not arise here."""
+    if split:
+        if "cv1_pieces" not in p:
+            raise ValueError("c2f='split' needs the weight pieces that "
+                             "place_params(c2f_split=True) lays out")
+        ys = [cv(q, x) for q in p["cv1_pieces"]]
+    else:
+        y = cv(p["cv1"], x)
+        c = y.shape[-1] // 2
+        ys = [y[..., :c], y[..., c:]]
     for mp in p["m"]:
         ys.append(_bottleneck(mp, ys[-1], shortcut, cv))
-    return cv(p["cv2"], torch.cat(ys, dim=-1))
+    if not split:
+        return cv(p["cv2"], torch.cat(ys, dim=-1))
+    acc = None
+    for q, yi in zip(p["cv2_pieces"], ys):
+        part = cv(q, yi, act=False)
+        acc = part if acc is None else acc + part
+    return (bias_silu_plain if plain else bias_silu)(acc, p["cv2"]["b"])
 
 
 def _maxpool5(x: torch.Tensor) -> torch.Tensor:
@@ -291,42 +319,91 @@ def _upsample2x(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, 2 * h, 2 * w, c)
 
 
+def stem_s2d_weights(w: torch.Tensor) -> torch.Tensor:
+    """The k3 s2 stem kernel (Co, 3, 3, 3) OIHW as the equivalent k2 s1
+    kernel (Co, 12, 2, 2) over space-to-depth input.
+
+    With z[p, q, a*6+b*3+c] = x[2p+a, 2q+b, c] (a, b in {0,1}), the stride-2
+    tap x[2i+di-1] maps to kernel position/offset (kp, a) = (0,1), (1,0),
+    (1,1) for di = 0, 1, 2; position (0, 0) never contributes and stays
+    zero (the JAX package's `_stem_s2d_weights`)."""
+    co = w.shape[0]
+    w2 = torch.zeros((co, 12, 2, 2), dtype=w.dtype, device=w.device)
+    taps = ((0, 1, 0), (1, 0, 1), (1, 1, 2))  # (kernel pos, offset, orig tap)
+    for kp, a, di in taps:
+        for kq, b, dj in taps:
+            ch = a * 6 + b * 3
+            w2[:, ch:ch + 3, kp, kq] = w[:, :, di, dj]
+    return w2
+
+
+def _stem_s2d(p: Params, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """The stem over space-to-depth input (B, S/2, S/2, 12): the exact
+    equivalent of _conv(m0, letterboxed, stride=2), as F.conv2d of the k2 s1
+    kernel over the input padded by (1, 0) on both axes (the original SAME
+    pad-1 border zeros), then the bias+SiLU kernel. BN-folded params only,
+    refused otherwise as the JAX package refuses them (the port folds BN at
+    load, so only a hand-built tree can reach the refusal)."""
+    if "bn" in p or "b" not in p:
+        raise ValueError(
+            "stem='s2d' requires BN-folded stem params (w + b, no bn "
+            "block) — run fold_batchnorm() on the checkpoint first")
+    w2 = p["w_s2d"] if "w_s2d" in p else stem_s2d_weights(p["w"])
+    xp = F.pad(x, (0, 0, 1, 0, 1, 0))  # NHWC: one zero row and column first
+    y = F.conv2d(xp.permute(0, 3, 1, 2), w2).permute(0, 2, 3, 1).contiguous()
+    return (bias_silu_plain if plain else bias_silu)(y, p["b"])
+
+
 def apply_backbone(params: Params, x: torch.Tensor, dtype=torch.float32,
-                   plain: bool = False
+                   plain: bool = False, stem: str = "conv",
+                   c2f: str = "slice", dot1x1: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Backbone + neck. x: (B, H, W, 3) float in [0,1]. Returns (P3, P4, P5)."""
+    """Backbone + neck. x: (B, H, W, 3) float in [0,1], or with stem="s2d"
+    the space-to-depth form (B, H/2, W/2, 12) of
+    ops/preprocess.letterbox_batch_mxu_s2d. Returns (P3, P4, P5). c2f:
+    "slice" or "split" (see _c2f). dot1x1: no effect (see the module
+    docstring)."""
     def cv(p, t, stride=1, act=True):
         return _conv(p, t, stride=stride, act=act, plain=plain)
 
+    def c2(p, t, shortcut):
+        return _c2f(p, t, shortcut, cv, split=(c2f == "split"), plain=plain)
+
     x = x.to(dtype)
-    x = cv(params["m0"], x, stride=2)
+    if stem == "s2d":
+        x = _stem_s2d(params["m0"], x, plain=plain)
+    else:
+        x = cv(params["m0"], x, stride=2)
     x = cv(params["m1"], x, stride=2)
-    x = _c2f(params["m2"], x, True, cv)
+    x = c2(params["m2"], x, True)
     x = cv(params["m3"], x, stride=2)
-    p3_in = _c2f(params["m4"], x, True, cv)                 # idx 4
+    p3_in = c2(params["m4"], x, True)                       # idx 4
     x = cv(params["m5"], p3_in, stride=2)
-    p4_in = _c2f(params["m6"], x, True, cv)                 # idx 6
+    p4_in = c2(params["m6"], x, True)                       # idx 6
     x = cv(params["m7"], p4_in, stride=2)
-    x = _c2f(params["m8"], x, True, cv)
+    x = c2(params["m8"], x, True)
     p5_in = _sppf(params["m9"], x, cv)                      # idx 9
 
     # Top-down
     x = torch.cat([_upsample2x(p5_in), p4_in], dim=-1)      # 10, 11
-    n12 = _c2f(params["m12"], x, False, cv)
+    n12 = c2(params["m12"], x, False)
     x = torch.cat([_upsample2x(n12), p3_in], dim=-1)        # 13, 14
-    p3 = _c2f(params["m15"], x, False, cv)
+    p3 = c2(params["m15"], x, False)
     # Bottom-up
     x = torch.cat([cv(params["m16"], p3, stride=2), n12], dim=-1)    # 16, 17
-    p4 = _c2f(params["m18"], x, False, cv)
+    p4 = c2(params["m18"], x, False)
     x = torch.cat([cv(params["m19"], p4, stride=2), p5_in], dim=-1)  # 19, 20
-    p5 = _c2f(params["m21"], x, False, cv)
+    p5 = c2(params["m21"], x, False)
     return p3, p4, p5
 
 
 def forward_raw(params: Params, spec: ModelSpec, x: torch.Tensor,
-                dtype=torch.float32, plain: bool = False) -> List[torch.Tensor]:
+                dtype=torch.float32, plain: bool = False, stem: str = "conv",
+                c2f: str = "slice", dot1x1: bool = False
+                ) -> List[torch.Tensor]:
     """Full forward. Returns per-level (B, Hi, Wi, 4*reg_max + nc) maps in f32."""
-    feats = apply_backbone(params, x, dtype=dtype, plain=plain)
+    feats = apply_backbone(params, x, dtype=dtype, plain=plain, stem=stem,
+                           c2f=c2f, dot1x1=dot1x1)
     det = params["m22"]
     outs = []
     for level, f in enumerate(feats):
@@ -396,7 +473,22 @@ def decode_outputs(spec: ModelSpec, outs: Sequence[torch.Tensor]) -> torch.Tenso
 
 
 def forward_decoded(params: Params, spec: ModelSpec, x: torch.Tensor,
-                    dtype=torch.float32, plain: bool = False) -> torch.Tensor:
+                    dtype=torch.float32, plain: bool = False,
+                    stem: str = "conv", c2f: str = "slice",
+                    dot1x1: bool = False) -> torch.Tensor:
     """(B, A, 4+nc) decoded output — the ONNX `output0` equivalent (transposed)."""
-    return decode_outputs(spec, forward_raw(params, spec, x, dtype=dtype,
-                                            plain=plain))
+    return decode_outputs(spec, forward_raw(
+        params, spec, x, dtype=dtype, plain=plain, stem=stem, c2f=c2f,
+        dot1x1=dot1x1))
+
+
+def forward_decoded_levels(params: Params, spec: ModelSpec, x: torch.Tensor,
+                           dtype=torch.float32, plain: bool = False,
+                           stem: str = "conv", c2f: str = "slice",
+                           dot1x1: bool = False
+                           ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Level-separated decoded output (boxes_l, probs_l), for the per-level
+    candidate selection (ops/nms.postprocess_batch_levels)."""
+    return decode_output_levels(spec, forward_raw(
+        params, spec, x, dtype=dtype, plain=plain, stem=stem, c2f=c2f,
+        dot1x1=dot1x1))

@@ -13,6 +13,9 @@ semantics (reference src/inference/onnx_engine.cpp:758-878):
   normalized, scores clipped to [0, 1];
 - one packed (B, 1 + 6*MAX_DET) f32 array per batch, so one D2H copy.
 
+`postprocess_batch_levels` is the same over the per-level decode
+(tpu.select="perlevel"): candidates are ranked within each level first.
+
 Candidate order decides greedy NMS. `lax.top_k` puts the lower index first
 among equal scores; `torch.topk` promises no order, so the ranking here is a
 stable descending sort, which keeps the lower index first too.
@@ -20,7 +23,7 @@ stable descending sort, which keeps the lower index first too.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -126,6 +129,38 @@ def postprocess_batch(pred: torch.Tensor, class_weights: torch.Tensor,
     top_boxes, top_scores, top_class, top_valid = _select_one(
         pred, class_weights, conf_thresh, topk)
     return _nms_and_compact(top_boxes, top_scores, top_class, top_valid,
+                            iou_thresh, scale, pad, src_wh, plain=plain)
+
+
+def postprocess_batch_levels(boxes_l: Sequence[torch.Tensor],
+                             probs_l: Sequence[torch.Tensor],
+                             class_weights: torch.Tensor, conf_thresh: float,
+                             iou_thresh: float, scale: torch.Tensor,
+                             pad: torch.Tensor, src_wh: torch.Tensor,
+                             topk: int = PRE_NMS_TOPK, plain: bool = False
+                             ) -> Dict[str, torch.Tensor]:
+    """postprocess_batch over the level-separated decode
+    (tpu.select="perlevel"): the top min(topk, A_l) candidates within each
+    FPN level, then the global top-k over the levels' survivors, ranked by
+    the same stable descending sort. The kept set equals the global top-k
+    over all anchors; among equal scores the order may differ (the JAX
+    package says the same of its `lax.top_k` form)."""
+    cs, cb, cc = [], [], []
+    for bx, pr in zip(boxes_l, probs_l):
+        b, s, c = _rank_candidates(bx, pr, class_weights, conf_thresh,
+                                   min(topk, pr.shape[1]))
+        cs.append(s)
+        cb.append(b)
+        cc.append(c)
+    scores = torch.cat(cs, dim=1)
+    boxes = torch.cat(cb, dim=1)
+    classes = torch.cat(cc, dim=1)
+    k = min(topk, scores.shape[1])
+    top_scores, order = torch.sort(scores, dim=-1, descending=True, stable=True)
+    top_scores, ti = top_scores[:, :k], order[:, :k]
+    top_boxes = torch.gather(boxes, 1, ti[..., None].expand(-1, -1, 4))
+    top_class = torch.gather(classes, 1, ti)
+    return _nms_and_compact(top_boxes, top_scores, top_class, top_scores > 0,
                             iou_thresh, scale, pad, src_wh, plain=plain)
 
 

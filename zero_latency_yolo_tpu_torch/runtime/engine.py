@@ -26,11 +26,20 @@ runs the same step on the cache's own bucket. The server's batcher splits
 that into `gather_from_cache`, run under the cache's lock, and
 `dispatch_gathered`, run after it (see scheduler.py).
 
-Not ported yet, and refused at construction rather than served differently:
-serve-size ladders (so `effective_serve_size` is always the model size and
-`update_adaptive_slo` refuses to enable), the synthetic step, int8, meshes,
-and the layout experiments stem="s2d", select="perlevel", c2f="split". The
-TPU kernel switches tpu.nms / tpu.act / tpu.conv1x1 have no effect here.
+Steps are cached by (batch bucket, serve size): the frame bucket changes no
+step in PyTorch, but the C2f form may change with the batch (`resolve_c2f`)
+and the letterbox target with the serve rung. The serve-size ladder
+(tpu.serve_sizes) and its adaptive policy are the JAX engine's: under a
+sustained p99 above tpu.adaptive_slo_ms the engine steps down the ladder,
+and back up when the margin is wide (`_maybe_adapt`); a client's accuracy
+floor (min_serve_size) snaps up the ladder (`effective_serve_size`). Every
+tpu.preprocess, tpu.select, tpu.c2f and tpu.stem value is served; the
+synthetic step (tpu.synthetic_step_ms / synthetic_step_profile(s)) replaces
+the device with a host-only fake lane whose step times come from the config.
+
+Refused at construction: int8 (tpu.quantize_int8) and serving meshes
+(tpu.mesh_data * tpu.mesh_model > 1). The TPU kernel switches tpu.nms /
+tpu.act / tpu.conv1x1 and tpu.dot1x1 have no effect here.
 
 `create_engine` picks the engine from `config.inference_engine` under the
 JAX package's registry names: "jax" and "onnx" select `InferenceEngine`,
@@ -53,14 +62,33 @@ import torch
 from ..config import CS16_CLASS_NAMES, ServerConfig
 from ..models.weights import (file_sha256, load_model, params_from_jax,
                               place_params)
-from ..models.yolov8 import ModelSpec, forward_decoded, get_spec
+from ..models.yolov8 import (ModelSpec, forward_decoded,
+                             forward_decoded_levels, get_spec)
 from ..ops import nms as nms_ops
-from ..ops.preprocess import letterbox_batch_mxu, letterbox_params
+from ..ops import preprocess as pre_ops
+from ..ops.preprocess import letterbox_params
 from ..protocol import Detection
 from ..utils.logging import get_logger
 from ..utils.stats import Counter, RollingStats
 
 log = get_logger("engine")
+
+# tpu.c2f="auto": the JAX package's per-(serving config, batch bucket) choice
+# of the C2f form, copied so that both engines run the same computation for
+# each bucket (the split form where the JAX package measured it faster on its
+# TPU: yolov8n at 416 in bf16, batch 32; the slice form everywhere else). The
+# port has no measurement of its own behind this table.
+C2F_AUTO_SPLIT = {("yolov8n", 416, "bfloat16"): frozenset({32})}
+
+
+def resolve_c2f(flag: str, batch: int, variant: str = "yolov8n",
+                size: int = 416, dtype: str = "bfloat16") -> str:
+    """The C2f form of one (serving config, batch bucket) for tpu.c2f="auto";
+    explicit "slice"/"split" values pass through for every bucket."""
+    if flag == "auto":
+        split = C2F_AUTO_SPLIT.get((variant, size, dtype), frozenset())
+        return "split" if batch in split else "slice"
+    return flag
 
 
 @dataclass
@@ -72,8 +100,10 @@ class InferenceRequest:
     height: int
     data: Optional[np.ndarray]  # (h, w, 3) uint8 RGB
     keyframe: bool = False
-    # Accuracy floor (the client's min_serve_size). Without a serve-size
-    # ladder every request is served at the model size.
+    # Accuracy floor (the client's min_serve_size): the adaptive policy may
+    # step the fleet down the ladder, but this request is served at a rung
+    # >= min_size (0 = follow the fleet). The scheduler groups a batch by
+    # effective rung before dispatching.
     min_size: int = 0
     enqueue_t: float = field(default_factory=time.perf_counter)
     # Stamped at payload-decode completion (the server rewinds enqueue_t to
@@ -101,9 +131,12 @@ class PendingBatch:
     # batch is done without waiting for it.
     event: Optional[Any] = None
     host: Optional[torch.Tensor] = None
-    # The JAX engine's synthetic-step finish time; the port has no synthetic
-    # step, so it stays None.
+    # Synthetic step only: when the fake device step "finishes" (complete()
+    # waits until then, the batcher's _ready polls against it) and the step
+    # time charged to this batch.
     ready_at: Optional[float] = None
+    step_ms: float = 0.0
+    # The serve rung the batch ran at; stamped onto each EngineResult.
     serve_size: int = 0
 
     @property
@@ -198,20 +231,22 @@ def full_f32_precision():
             setattr(obj, name, value)
 
 
+def _unstretch(boxes: torch.Tensor, sy: torch.Tensor) -> torch.Tensor:
+    """Boxes (B, A, 4+) of a stretched frame with y and h divided by the
+    per-frame (B, 1) factor sy: the stretch's separate x and y scales in the
+    (scale, pad) form postprocess undoes."""
+    boxes = boxes.clone()
+    boxes[..., 1] /= sy
+    boxes[..., 3] /= sy
+    return boxes
+
+
 def _check_supported(config: ServerConfig) -> None:
     """Refuse what the port does not implement yet, at construction."""
     tpu = config.tpu
     refused = {
-        "tpu.stem='s2d'": tpu.stem != "conv",
-        "tpu.select='perlevel'": tpu.select != "concat",
-        "tpu.c2f='split'": tpu.c2f == "split",
         "tpu.quantize_int8": bool(tpu.quantize_int8),
         "tpu.mesh_data/mesh_model > 1": int(tpu.mesh_data) * int(tpu.mesh_model) > 1,
-        "tpu.serve_sizes": bool(tpu.serve_sizes),
-        f"tpu.preprocess={tpu.preprocess!r}": tpu.preprocess != "letterbox_mxu",
-        "tpu.synthetic_step_ms / synthetic_step_profile(s)": bool(
-            tpu.synthetic_step_ms > 0 or tpu.synthetic_step_profile
-            or tpu.synthetic_step_profiles),
     }
     bad = [name for name, hit in refused.items() if hit]
     if bad:
@@ -228,6 +263,9 @@ class InferenceEngine:
 
     # SimulationEngine: random detections, no model load, no device state.
     _always_simulate = False
+    # An upshift answered by a downshift within this window is a failed
+    # probe (drives the exponential upshift holddown; see _maybe_adapt).
+    _UPSHIFT_PROBE_S = 10.0
 
     def __init__(self, config: ServerConfig,
                  params: Optional[Dict[str, Any]] = None,
@@ -248,10 +286,46 @@ class InferenceEngine:
         self.frame_buckets = tuple(tuple(b) for b in tpu.frame_buckets)
         self.pre_nms_topk = int(tpu.pre_nms_topk)
         self.max_inflight = max(int(tpu.max_inflight), 1)
-        # No serve-size ladder (tpu.serve_sizes is refused): one rung.
-        self.serve_sizes = (self.model_size,)
+        # Serve-size ladder (adaptive resolution): the fully-convolutional
+        # model serves any 32-multiple size from the same params; steps are
+        # keyed by size and the current size is dispatch-thread state.
+        ladder = {int(s) for s in tpu.serve_sizes or ()}
+        too_big = {s for s in ladder if s > self.model_size}
+        if too_big:
+            # The policy only trades resolution down from the configured
+            # size: a larger rung would let a healthy server upshift above
+            # the operator's baseline.
+            log.warning("tpu.serve_sizes rungs %s exceed model size %d — "
+                        "dropped", sorted(too_big), self.model_size)
+            ladder -= too_big
+        self.serve_sizes = tuple(sorted(ladder | {self.model_size},
+                                        reverse=True))
         self._serve_size = self.model_size
-        self.adaptive_slo_ms = 0.0
+        self.adaptive_slo_ms = float(tpu.adaptive_slo_ms)
+        # Policy state (dispatch thread only): a short window of its own, so
+        # a size switch is judged on fresh samples.
+        self._adapt_stats = RollingStats(window=256)
+        self._adapt_next_check = 0.0
+        self._adapt_hot = 0
+        self._adapt_cool = 0
+        self.size_downshifts = 0
+        self.size_upshifts = 0
+        # Upshift holddown: an upshift followed by a downshift within
+        # _UPSHIFT_PROBE_S failed under the current load; each failed probe
+        # doubles the wait before the next one, bounded.
+        self._last_upshift_t = -1e9
+        self._upshift_fail_streak = 0
+        self._upshift_block_until = 0.0
+        # A runtime SLO change (update_adaptive_slo) staged for the dispatch
+        # thread; the lock makes stage and consume atomic, so a concurrent
+        # update the client was acknowledged for is never lost.
+        self._staged_slo: Optional[float] = None
+        self._slo_lock = threading.Lock()
+        # Rungs every (batch, bucket) step of which warmup ran: a runtime
+        # SLO enable is refused while a rung is cold, so that a downshift
+        # under pressure is never the first call of its shapes (cuDNN's
+        # algorithm choice and the 1x1 kernel's plans are made there).
+        self._warmed_sizes: Tuple[int, ...] = ()
 
         self.simulation = self._always_simulate
         self._model_hash: Optional[str] = None
@@ -265,16 +339,50 @@ class InferenceEngine:
             else:
                 log.warning("model %s not loadable — simulation mode active",
                             config.model_path)
+        # The synthetic step (a measurement harness for everything around
+        # the step): a fixed-duration fake device step, or one per batch
+        # bucket (synthetic_step_profile) and per serve size
+        # (synthetic_step_profiles), with times from the config. It forces
+        # simulated detections and never touches the device.
+        self.synthetic_step_ms = float(tpu.synthetic_step_ms)
+        self.synthetic_profile = {
+            int(k): float(v)
+            for k, v in (tpu.synthetic_step_profile or {}).items()}
+        self.synthetic_profiles = {
+            int(size): {int(k): float(v) for k, v in prof.items()}
+            for size, prof in (tpu.synthetic_step_profiles or {}).items()}
+        if self.synthetic_profiles:
+            if self.adaptive_slo_ms > 0:
+                missing = set(self.serve_sizes) - set(self.synthetic_profiles)
+                if missing:
+                    raise ValueError(
+                        f"tpu.synthetic_step_profiles missing ladders for "
+                        f"serve sizes {sorted(missing)}")
+            if not self.synthetic_profile:
+                self.synthetic_profile = self.synthetic_profiles.get(
+                    self.model_size) or next(
+                        iter(self.synthetic_profiles.values()))
+        if self.synthetic_profile and self.synthetic_step_ms <= 0:
+            self.synthetic_step_ms = max(self.synthetic_profile.values())
+        if self.synthetic_step_ms > 0:
+            if not self.simulation:
+                log.warning("synthetic_step_ms=%.2f: device compute DISABLED "
+                            "(measurement harness)", self.synthetic_step_ms)
+            self.simulation = True
+        # When the previous fake step finishes: fake steps queue one after
+        # another like the real device lane.
+        self._synthetic_last_ready = 0.0
         # Simulation never touches the device.
-        self._params = None if self.simulation else place_params(
-            params_from_jax(params), self.device, self.dtype)
+        self._params = None if self.simulation else self._place(
+            params_from_jax(params))
         self._class_weights = self._class_weight_tensor()
         # A hot reload staged by maybe_reload (host tensors, and the file's
         # geometry when leaving simulation), applied by the dispatch thread.
         self._staged: Optional[Tuple[Any, Optional[ModelSpec]]] = None
         self._params_lock = threading.Lock()
 
-        self._step = self._build_step()
+        # Steps by (batch, serve size), and ("cached", batch, serve size).
+        self._step_cache: Dict[Tuple, Any] = {}
         # Per-shape free-lists of host staging buffer pairs (see dispatch).
         self._staging: Dict[Tuple[int, int, int],
                             List[Tuple[torch.Tensor, torch.Tensor]]] = {}
@@ -288,6 +396,7 @@ class InferenceEngine:
         self.error_count = Counter()
         self.latency = RollingStats()      # dispatch -> readback (pipeline)
         self.e2e_latency = RollingStats()  # submit -> result
+        self.synthetic_host = RollingStats()  # e2e minus the fake step
         self.batch_sizes = RollingStats()
         self._rng = random.Random(1337)
         self.warmed = self.simulation
@@ -301,65 +410,153 @@ class InferenceEngine:
             dtype=torch.float32,
             device=None if self.simulation else self.device)
 
+    def _c2f_form(self, batch: int, size: int) -> str:
+        tpu = self.config.tpu
+        return resolve_c2f(tpu.c2f, batch, variant=tpu.variant, size=size,
+                           dtype=tpu.dtype)
+
+    def _place(self, params):
+        """Device placement of device-form params, with the split C2f's
+        weight pieces when some (batch bucket, rung) runs that form and the
+        space-to-depth stem kernel when tpu.stem="s2d"."""
+        split = any(self._c2f_form(b, s) == "split"
+                    for b in self.batch_buckets for s in self.serve_sizes)
+        return place_params(params, self.device, self.dtype, c2f_split=split,
+                            stem_s2d=self.config.tpu.stem == "s2d")
+
     # ---------------------------------------------------------------- step
-    def _build_step(self, plain: bool = False):
-        """The serving step:
+    def _build_step(self, batch: int, size: Optional[int] = None,
+                    plain: bool = False):
+        """The serving step of one (batch bucket, serve size):
         step(params, frames, heights, widths, class_w, conf, iou) -> packed
-        (B, 1 + 6*MAX_DET) f32. `plain=True` runs every kernel's plain
-        PyTorch version instead (the reference a run checks the kernels
-        against). An f32 step runs its convs and matmuls in full f32
-        whatever the caller's TF32 settings (`full_f32_precision`)."""
-        size, spec = self.model_size, self.spec
-        dtype, topk = self.dtype, self.pre_nms_topk
+        (B, 1 + 6*MAX_DET) f32, the JAX engine's `_build_step`: resize by
+        tpu.preprocess (or the space-to-depth letterbox with tpu.stem="s2d"),
+        the model with the C2f form `resolve_c2f` picks for the batch, the
+        decode, and the concat or per-level candidate selection (tpu.select).
+        `plain=True` runs every kernel's plain PyTorch version instead (the
+        reference a run checks the kernels against). An f32 step runs its
+        convs and matmuls in full f32 whatever the caller's TF32 settings
+        (`full_f32_precision`)."""
+        size = int(size or self.model_size)
+        spec, dtype, topk = self.spec, self.dtype, self.pre_nms_topk
+        tpu = self.config.tpu
+        mode, stem, select = tpu.preprocess, tpu.stem, tpu.select
+        model_kw = dict(dtype=dtype, plain=plain, stem=stem,
+                        c2f=self._c2f_form(batch, size), dot1x1=tpu.dot1x1)
+        if stem == "s2d":
+            if not mode.startswith("letterbox"):
+                raise ValueError("stem='s2d' requires a letterbox preprocess")
+            mode = "letterbox"  # for the scale/pad branch below
+
+            def resize(f, hh, ww):
+                return pre_ops.letterbox_batch_mxu_s2d(f, hh, ww, size, dtype)
+        else:
+            resize = {
+                "letterbox": lambda f, hh, ww: pre_ops.letterbox_batch(
+                    f, hh, ww, size),
+                "letterbox_mxu": lambda f, hh, ww: pre_ops.letterbox_batch_mxu(
+                    f, hh, ww, size, dtype),
+                "stretch": lambda f, hh, ww: pre_ops.stretch_batch(
+                    f, hh, ww, size),
+            }[mode]
         precision = (full_f32_precision if dtype == torch.float32
                      else contextlib.nullcontext)
 
         @torch.inference_mode()
         def step(params, frames, heights, widths, class_w, conf, iou):
             with precision():
-                x = letterbox_batch_mxu(frames, heights, widths, size, dtype)
+                x = resize(frames, heights, widths)
                 hf = heights.to(torch.float32)
                 wf = widths.to(torch.float32)
-                scale, pad_x, pad_y = letterbox_params(hf, wf, size)
-                pad = torch.stack([pad_x, pad_y], dim=-1)
+                if mode.startswith("letterbox"):
+                    scale, pad_x, pad_y = letterbox_params(hf, wf, size)
+                    pad = torch.stack([pad_x, pad_y], dim=-1)
+                    sy = None
+                else:
+                    # Stretch: separate x and y scales, folded into the
+                    # (scale, pad) form by giving postprocess the x scale
+                    # and rescaling y and h.
+                    scale = size / wf
+                    pad = torch.zeros((frames.shape[0], 2),
+                                      dtype=torch.float32, device=hf.device)
+                    sy = ((size / hf) / scale)[:, None]
                 src_wh = torch.stack([wf, hf], dim=-1)
-                pred = forward_decoded(params, spec, x, dtype=dtype,
-                                       plain=plain)
-                out = nms_ops.postprocess_batch(pred, class_w, conf, iou,
-                                                scale, pad, src_wh, topk,
-                                                plain=plain)
+                if select == "perlevel":
+                    boxes_l, probs_l = forward_decoded_levels(
+                        params, spec, x, **model_kw)
+                    if sy is not None:
+                        boxes_l = [_unstretch(b, sy) for b in boxes_l]
+                    out = nms_ops.postprocess_batch_levels(
+                        boxes_l, probs_l, class_w, conf, iou, scale, pad,
+                        src_wh, topk, plain=plain)
+                else:
+                    pred = forward_decoded(params, spec, x, **model_kw)
+                    if sy is not None:
+                        pred = _unstretch(pred, sy)
+                    out = nms_ops.postprocess_batch(
+                        pred, class_w, conf, iou, scale, pad, src_wh, topk,
+                        plain=plain)
                 return nms_ops.pack_outputs(out)
 
         return step
 
-    def get_step(self, batch: int, bucket: Tuple[int, int]):
-        """The step for a (batch, bucket) pair. PyTorch runs eagerly and
-        compiles nothing per shape, so one step serves every pair."""
-        return self._step
+    def get_step(self, batch: int, bucket: Tuple[int, int],
+                 size: Optional[int] = None):
+        """The step of a (batch, bucket) pair at serve size `size` (default:
+        the current rung). PyTorch compiles nothing per shape, so the steps
+        are cached by (batch, size) only."""
+        size = int(size or self._serve_size)
+        key = (batch, size)
+        fn = self._step_cache.get(key)
+        if fn is None:
+            fn = self._step_cache[key] = self._build_step(batch, size)
+        return fn
 
-    def get_step_cached(self, batch: int, bucket: Tuple[int, int]):
+    def get_step_cached(self, batch: int, bucket: Tuple[int, int],
+                        size: Optional[int] = None):
         """The cached step: step(params, cache, shw, class_w, conf, iou),
         shw a (3, B) int32 device tensor of rows [slots, heights, widths]:
         the gather of the batch's slots out of the device frame cache
         followed by the step (the JAX engine's fused program)."""
-        step = self.get_step(batch, bucket)
+        size = int(size or self._serve_size)
+        key = ("cached", batch, size)
+        fn = self._step_cache.get(key)
+        if fn is None:
+            step = self.get_step(batch, bucket, size)
 
-        def cached(params, cache, shw, class_w, conf, iou):
-            return step(params, _gather(cache, shw[0]), shw[1], shw[2],
-                        class_w, conf, iou)
-        return cached
+            def fn(params, cache, shw, class_w, conf, iou):
+                return step(params, _gather(cache, shw[0]), shw[1], shw[2],
+                            class_w, conf, iou)
+            self._step_cache[key] = fn
+        return fn
+
+    def _step(self, size: int, params, frames: torch.Tensor, heights,
+              widths, class_w, conf, iou) -> torch.Tensor:
+        """Run the step of (len(frames), size) on a staged or gathered batch:
+        every dispatch path launches its step here."""
+        return self.get_step(int(frames.shape[0]),
+                             (int(frames.shape[1]), int(frames.shape[2])),
+                             size)(params, frames, heights, widths, class_w,
+                                   conf, iou)
 
     def warmup(self, batches: Optional[Sequence[int]] = None,
                buckets: Optional[Sequence[Tuple[int, int]]] = None,
                cache=None, inflight: int = 0) -> float:
-        """Run every (batch, bucket) step once; returns seconds spent. With
-        `cache` (a DeviceFrameCache, or its device tensor) the cache's write
-        path is run once too (`warm`), and the cached step once per batch
-        bucket under the cache's lock: a keyframe written meanwhile by a
-        client is flushed first, never overwritten mid-step. `inflight` is
-        the server's pipeline depth, for which PyTorch has nothing to
-        compile."""
+        """Run every (batch, bucket) step once at every reachable rung (all
+        of the ladder when the adaptive policy is on, else the current size);
+        returns seconds spent. With `cache` (a DeviceFrameCache, or its
+        device tensor) the cache's write path is run once too (`warm`), and
+        the cached step once per batch bucket and rung under the cache's
+        lock: a keyframe written meanwhile by a client is flushed first,
+        never overwritten mid-step. PyTorch compiles nothing per shape, but
+        a shape's first call pays for cuDNN's algorithm choice and the 1x1
+        kernel's plan, which is what warming a rung buys. The rungs are
+        certified for a runtime SLO enable (update_adaptive_slo) only when
+        the full (batch, bucket) grid ran. `inflight` is the server's
+        pipeline depth, for which PyTorch has nothing to compile."""
         t0 = time.perf_counter()
+        warm_sizes = (self.serve_sizes if self.adaptive_slo_ms > 0
+                      else (self._serve_size,))
         if not self.simulation:
             for b in (batches or self.batch_buckets):
                 for bk in (buckets or self.frame_buckets):
@@ -369,10 +566,11 @@ class InferenceEngine:
                                     device=self.device)
                     ws = torch.full((b,), bk[1], dtype=torch.int32,
                                     device=self.device)
-                    self.get_step(b, bk)(
-                        self._params, frames, hs, ws, self._class_weights,
-                        self.config.confidence_threshold,
-                        self.config.nms_threshold).cpu()
+                    for sz in warm_sizes:
+                        self.get_step(b, bk, sz)(
+                            self._params, frames, hs, ws, self._class_weights,
+                            self.config.confidence_threshold,
+                            self.config.nms_threshold).cpu()
         if cache is not None:
             if hasattr(cache, "warm"):
                 cache.warm()
@@ -384,30 +582,82 @@ class InferenceEngine:
                     bucket = (int(arr.shape[1]), int(arr.shape[2]))
                     shw = torch.zeros((3, b), dtype=torch.int32)
                     shw[1], shw[2] = bucket
-                    return self.get_step_cached(b, bucket)(
-                        self._params, arr, shw.to(self.device),
-                        self._class_weights, self.config.confidence_threshold,
-                        self.config.nms_threshold)
-                locked(launch).cpu()
+                    shw = shw.to(self.device)
+                    return [self.get_step_cached(b, bucket, sz)(
+                        self._params, arr, shw, self._class_weights,
+                        self.config.confidence_threshold,
+                        self.config.nms_threshold) for sz in warm_sizes]
+                for out in locked(launch):
+                    out.cpu()
         self.warmed = True
         dt = time.perf_counter() - t0
-        log.info("engine warmup done in %.1fs", dt)
+        full_grid = (
+            set(batches or self.batch_buckets) >= set(self.batch_buckets)
+            and {tuple(bk) for bk in (buckets or self.frame_buckets)}
+            >= set(self.frame_buckets))
+        if full_grid:
+            self._warmed_sizes = tuple(warm_sizes)
+        log.info("engine warmup done in %.1fs%s", dt,
+                 "" if full_grid else " (partial grid: rungs not certified "
+                                     "for a runtime SLO enable)")
         return dt
 
     def update_adaptive_slo(self, slo_ms: float) -> bool:
         """Runtime SLO change (SET_CONFIG / CONFIG_UPDATE). Enabling needs a
-        warmed serve-size ladder, which the port has not got: refused, as
-        the JAX engine refuses it without one. Disabling (0) is a no-op."""
-        if float(slo_ms) > 0:
-            log.warning("adaptive_slo_ms ignored: no tpu.serve_sizes ladder "
-                        "(not ported)")
-            return False
+        ladder whose rungs warmup ran over the full grid (the synthetic
+        step, which has no device, needs no warmup); disabling (0) returns
+        serving to the boot size. Validated here, on the caller's thread;
+        the change is staged and applied by the dispatch thread
+        (_apply_staged_slo), which owns the policy state."""
+        slo_ms = float(slo_ms)
+        if slo_ms > 0:
+            if len(self.serve_sizes) < 2:
+                log.warning("adaptive_slo_ms ignored: no tpu.serve_sizes "
+                            "ladder configured")
+                return False
+            if (self.synthetic_step_ms <= 0
+                    and not set(self.serve_sizes) <= set(self._warmed_sizes)):
+                log.warning("adaptive_slo_ms ignored: serve-size rungs were "
+                            "not warmed (boot with adaptive_slo_ms > 0)")
+                return False
+        with self._slo_lock:
+            self._staged_slo = slo_ms
         return True
 
+    def _apply_staged_slo(self) -> None:
+        """Dispatch thread only (from _current_params and _maybe_adapt):
+        apply a staged SLO change together with the policy state it
+        governs."""
+        with self._slo_lock:
+            staged = self._staged_slo
+            if staged is None:
+                return
+            self._staged_slo = None
+        self.adaptive_slo_ms = staged
+        self._adapt_hot = 0
+        self._adapt_cool = 0
+        # A new SLO is a new contract: the failed-probe history of the old
+        # one does not hold upshifts back.
+        self._last_upshift_t = -1e9
+        self._upshift_fail_streak = 0
+        self._upshift_block_until = 0.0
+        # A fresh window: samples gathered before the change must not judge
+        # the new SLO.
+        self._adapt_stats = RollingStats(window=256)
+        if staged <= 0:
+            self._serve_size = self.model_size
+        log.info("adaptive SLO now %.1f ms (serve size %d)",
+                 self.adaptive_slo_ms, self._serve_size)
+
     def effective_serve_size(self, min_size: int = 0) -> int:
-        """Serve rung for a request with accuracy floor `min_size`: without
-        a ladder, always the model size."""
-        return self.model_size
+        """The rung for a request with accuracy floor `min_size`: the
+        policy's current rung, raised to the smallest rung >= the floor (so
+        a floored request always lands on a warmed rung)."""
+        size = self._serve_size
+        if min_size and min_size > size:
+            size = min((s for s in self.serve_sizes if s >= min_size),
+                       default=self.model_size)
+        return size
 
     # ------------------------------------------------------------ hot swap
     def maybe_reload(self) -> bool:
@@ -455,8 +705,10 @@ class InferenceEngine:
         return True
 
     def _current_params(self):
-        """Dispatch thread only: apply a staged hot reload (the device copy
-        happens here), then return the live params."""
+        """Dispatch thread only: apply a staged SLO change and a staged hot
+        reload (the device copy happens here), then return the live
+        params."""
+        self._apply_staged_slo()
         with self._params_lock:
             staged, self._staged = self._staged, None
         if staged is not None:
@@ -464,35 +716,40 @@ class InferenceEngine:
             self.simulation = False
             if spec is not None:
                 self.spec = spec
-                self._step = self._build_step()
+                self._step_cache.clear()
             self._class_weights = self._class_weight_tensor()
-            self._params = place_params(params, self.device, self.dtype)
+            self._params = self._place(params)
             log.info("hot-reload applied on the dispatch thread")
         return self._params
 
     def _simulating(self) -> bool:
         """Whether this dispatch serves simulated detections; a reload staged
-        while simulating is applied here first."""
-        if self.simulation and self._staged is not None:
+        while simulating is applied here first (not under the synthetic
+        step, which never serves the device)."""
+        if (self.simulation and self._staged is not None
+                and self.synthetic_step_ms <= 0):
             self._current_params()
         return self.simulation
 
     # --------------------------------------------------------------- infer
     def infer_batch(self, requests: List[InferenceRequest]) -> List[EngineResult]:
         """Convenience synchronous path. Requests are grouped by frame bucket
-        and chunked at the largest batch bucket (dispatch() serves one bucket
-        of at most that many rows per call)."""
-        groups: Dict[Optional[Tuple[int, int]], List[int]] = {}
+        and by their effective serve rung (accuracy floors), and chunked at
+        the largest batch bucket (dispatch() serves one bucket of at most
+        that many rows per call)."""
+        groups: Dict[Tuple[Optional[Tuple[int, int]], int], List[int]] = {}
         for i, r in enumerate(requests):
             groups.setdefault(
-                _pick_bucket(self.frame_buckets, r.height, r.width),
+                (_pick_bucket(self.frame_buckets, r.height, r.width),
+                 self.effective_serve_size(r.min_size)),
                 []).append(i)
         out: List[Optional[EngineResult]] = [None] * len(requests)
         cap = max(self.batch_buckets)
-        for idxs in groups.values():
+        for (_bucket, size), idxs in groups.items():
             for j in range(0, len(idxs), cap):
                 part = idxs[j:j + cap]
-                res = self.complete(self.dispatch([requests[i] for i in part]))
+                res = self.complete(self.dispatch(
+                    [requests[i] for i in part], size=size))
                 if len(res) == len(part):  # oversized group: res == [] (shed)
                     for i, e in zip(part, res):
                         out[i] = e
@@ -502,15 +759,15 @@ class InferenceEngine:
                  size: Optional[int] = None) -> PendingBatch:
         """Stage + launch one device step; returns without waiting for the
         device. Pair with complete(). `size` is the serve rung the caller
-        grouped by (effective_serve_size): only the model size exists."""
+        grouped by (effective_serve_size); default the current rung."""
         if not requests:
             return PendingBatch(requests=[], out=None, t0=0.0, n=0)
-        self._check_size(size)
+        size = self._rung(size)
         if any(r.data is None for r in requests):
             raise ValueError("request without pixels: a frame in the device "
                              "frame cache is served by dispatch_from_cache")
         if self._simulating():
-            return self._sim_pending(requests)
+            return self._sim_pending(requests, size)
         t0 = time.perf_counter()
         # Shed frames larger than every configured bucket.
         oversized = [r for r in requests
@@ -567,19 +824,25 @@ class InferenceEngine:
         params = self._current_params()
         frames_d = frames.to(self.device, non_blocking=True)
         shw_d = shw.to(self.device, non_blocking=True)
-        out = self.get_step(batch, bucket)(
-            params, frames_d, shw_d[0], shw_d[1], self._class_weights,
-            self.config.confidence_threshold, self.config.nms_threshold)
-        return self._launched(requests, out, t0, key, (frames, shw))
+        out = self._step(size, params, frames_d, shw_d[0], shw_d[1],
+                         self._class_weights, self.config.confidence_threshold,
+                         self.config.nms_threshold)
+        return self._launched(requests, out, t0, key, (frames, shw), size)
 
-    def _check_size(self, size: Optional[int]) -> None:
-        if size is not None and int(size) != self.model_size:
-            raise ValueError(f"serve size {size}: the engine serves only its "
-                             f"model size {self.model_size} (no ladder)")
+    def _rung(self, size: Optional[int]) -> int:
+        """The serve rung of a dispatch: `size`, which must be a rung of the
+        ladder, or the current rung."""
+        if size is None:
+            return self._serve_size
+        if int(size) not in self.serve_sizes:
+            raise ValueError(f"serve size {size}: not a rung of the ladder "
+                             f"{self.serve_sizes}")
+        return int(size)
 
     def _launched(self, requests: List[InferenceRequest], out: torch.Tensor,
                   t0: float, staging_key: Tuple,
-                  staging_buf: Tuple[torch.Tensor, ...]) -> PendingBatch:
+                  staging_buf: Tuple[torch.Tensor, ...],
+                  size: int) -> PendingBatch:
         """The PendingBatch of a step just launched; on CUDA its result's
         D2H copy is started and an event recorded behind it."""
         event = host = None
@@ -597,7 +860,7 @@ class InferenceEngine:
         return PendingBatch(requests=requests, out=out, t0=t0,
                             n=len(requests), staging_key=staging_key,
                             staging_buf=staging_buf, event=event, host=host,
-                            serve_size=self.model_size)
+                            serve_size=size)
 
     def _stage_shw(self, batch: int, rows: Sequence[np.ndarray]):
         """A pinned (3, B) int32 staging buffer from the free-list, its rows
@@ -625,7 +888,7 @@ class InferenceEngine:
         """Launch over device-resident frames (a DeviceFrameCache gather):
         no pixel staging, no H2D pixel copy. The frames' shape must be a
         configured (batch bucket, frame bucket) pair, as the JAX engine
-        requires."""
+        requires. Runs at the current rung."""
         if self._simulating():
             return self._sim_pending(requests)
         t0 = time.perf_counter()
@@ -672,19 +935,19 @@ class InferenceEngine:
                           gathered: Optional[GatheredBatch],
                           size: Optional[int] = None) -> PendingBatch:
         """The second half of dispatch_from_cache: the step on a gathered
-        batch (None: simulated). Needs no lock: the gather is already
-        queued on the stream ahead of any later cache write."""
-        self._check_size(size)
+        batch (None: simulated) at rung `size` (default the current rung).
+        Needs no lock: the gather is already queued on the stream ahead of
+        any later cache write."""
+        size = self._rung(size)
         if gathered is None or self._simulating():
-            return self._sim_pending(requests)
-        frames = gathered.frames
-        out = self.get_step(int(frames.shape[0]),
-                            (int(frames.shape[1]), int(frames.shape[2])))(
-            self._current_params(), frames, gathered.shw[1], gathered.shw[2],
-            self._class_weights, self.config.confidence_threshold,
-            self.config.nms_threshold)
+            return self._sim_pending(requests, size)
+        out = self._step(size, self._current_params(), gathered.frames,
+                         gathered.shw[1], gathered.shw[2],
+                         self._class_weights, self.config.confidence_threshold,
+                         self.config.nms_threshold)
         return self._launched(requests, out, gathered.t0,
-                              gathered.staging_key, gathered.staging_buf)
+                              gathered.staging_key, gathered.staging_buf,
+                              size)
 
     def dispatch_from_cache(self, requests: List[InferenceRequest],
                             cache: torch.Tensor, slots: np.ndarray,
@@ -694,25 +957,55 @@ class InferenceEngine:
         engine's fused dispatch): one packed (3, B) upload of slots, heights
         and widths from pinned memory, the gather, the step on the cache's
         bucket; returns without waiting for the device. `size` is the serve
-        rung (only the model size exists)."""
-        self._check_size(size)
+        rung (default the current rung)."""
+        size = self._rung(size)
         return self.dispatch_gathered(
-            requests, self.gather_from_cache(cache, slots, heights, widths))
+            requests, self.gather_from_cache(cache, slots, heights, widths),
+            size)
 
-    def _sim_pending(self, requests: List[InferenceRequest]) -> PendingBatch:
-        pb = PendingBatch(requests=requests, out=None, t0=time.perf_counter(),
-                          n=len(requests),
+    def _sim_pending(self, requests: List[InferenceRequest],
+                     size: Optional[int] = None) -> PendingBatch:
+        """Simulated dispatch. Under the synthetic step the batch also gets
+        a ready_at stamp: back-to-back dispatches queue, one fake step
+        each, like the one real device lane."""
+        t0 = time.perf_counter()
+        pb = PendingBatch(requests=requests, out=None, t0=t0, n=len(requests),
                           simulated=[self._simulate(r) for r in requests],
-                          serve_size=self.model_size)
+                          serve_size=int(size or self._serve_size))
         for er in pb.simulated:
             er.batch_n = len(requests)
+            er.serve_size = pb.serve_size
+        if self.synthetic_step_ms > 0:
+            pb.step_ms = self._synthetic_step(len(requests), pb.serve_size)
+            start = max(t0, self._synthetic_last_ready)
+            self._synthetic_last_ready = start + pb.step_ms / 1e3
+            pb.ready_at = self._synthetic_last_ready
+            for er in pb.simulated:
+                er.infer_ms = pb.step_ms
         return pb
+
+    def _synthetic_step(self, n: int, size: Optional[int] = None) -> float:
+        """The fake step's ms for an n-request batch: the configured ladder's
+        entry for the padded batch bucket (the next listed bucket up when
+        it is not listed), of the rung `size` when per-rung ladders are
+        configured, else the flat synthetic_step_ms."""
+        profile = (self.synthetic_profiles.get(int(size or self._serve_size))
+                   or self.synthetic_profile)
+        if not profile:
+            return self.synthetic_step_ms
+        bucket = _pick_batch(self.batch_buckets, n)
+        for b in sorted(profile):
+            if bucket <= b:
+                return profile[b]
+        return profile[max(profile)]
 
     def complete(self, pending: PendingBatch) -> List[EngineResult]:
         """Wait for the device step and convert its packed output."""
         if not pending.requests:
             return []
         if pending.simulated is not None:
+            if pending.ready_at is not None:
+                self._complete_synthetic(pending)
             return pending.simulated
         if pending.host is not None:  # the copy started at dispatch
             pending.event.synchronize()
@@ -737,6 +1030,25 @@ class InferenceEngine:
                 row += rows
         return [self._convert(p, host[id(p)]) if id(p) in host
                 else self.complete(p) for p in pendings]
+
+    def _complete_synthetic(self, pending: PendingBatch) -> None:
+        """Wait like a device readback until the fake step is done, and feed
+        the statistics (and the adaptive policy) the real path feeds."""
+        delay = pending.ready_at - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        now = time.perf_counter()
+        self.latency.record((now - pending.t0) * 1e3)
+        self.batch_sizes.record(pending.n)
+        for r, er in zip(pending.requests, pending.simulated):
+            e2e = (now - r.enqueue_t) * 1e3
+            self.e2e_latency.record(e2e)
+            if pending.serve_size == self._serve_size:
+                self._adapt_stats.record(e2e)
+            # Everything but the fake step: the host path's own time.
+            self.synthetic_host.record(max(e2e - pending.step_ms, 0.0))
+            er.queue_ms = max(e2e - pending.step_ms, 0.0)
+        self._maybe_adapt()
 
     def recycle_staging(self, pendings: List[PendingBatch]) -> None:
         """Return the staging buffers of batches whose completion failed to
@@ -773,6 +1085,12 @@ class InferenceEngine:
             ]
             e2e_ms = (now - r.enqueue_t) * 1e3
             self.e2e_latency.record(e2e_ms)
+            if pending.serve_size == self._serve_size:
+                # Only samples of the current rung steer the policy: a
+                # floored group serves above it by contract (its latency is
+                # nothing a further downshift fixes), and a batch dispatched
+                # at a previous rung must not judge the new one.
+                self._adapt_stats.record(e2e_ms)
             results.append(EngineResult(
                 client_id=r.client_id, frame_id=r.frame_id,
                 timestamp=r.timestamp, detections=dets,
@@ -780,7 +1098,70 @@ class InferenceEngine:
                 recv_t=r.enqueue_t,
                 decode_ms=max((r.decoded_t - r.enqueue_t) * 1e3, 0.0),
                 batch_n=pending.n, serve_size=pending.serve_size))
+        self._maybe_adapt()
         return results
+
+    # ------------------------------------------------- adaptive resolution
+    def _maybe_adapt(self) -> None:
+        """The serve-size policy, dispatch thread only (called at
+        completion): a sustained submit->result p99 over the SLO steps down
+        the ladder, a sustained wide margin steps back up. The hysteresis is
+        asymmetric (two hot checks down, eight cool checks up), checks are
+        0.5 s apart on at least 32 fresh samples, the window resets on every
+        switch, and an upshift that fails within _UPSHIFT_PROBE_S holds the
+        next one off exponentially (30 s, 60 s, ... up to 600 s)."""
+        self._apply_staged_slo()
+        if self.adaptive_slo_ms <= 0 or len(self.serve_sizes) < 2:
+            return
+        if self.simulation and not self.synthetic_profiles:
+            # Plain simulation has no size-dependent step to adapt to.
+            return
+        now = time.perf_counter()
+        if now < self._adapt_next_check:
+            return
+        snap = self._adapt_stats.snapshot()
+        if snap["count"] < 32:
+            return
+        self._adapt_next_check = now + 0.5
+        i = self.serve_sizes.index(self._serve_size)
+        if (self._last_upshift_t > 0
+                and now - self._last_upshift_t >= self._UPSHIFT_PROBE_S):
+            # The probed rung held for the window: the probe succeeded.
+            self._upshift_fail_streak = 0
+            self._last_upshift_t = -1e9
+        if snap["p99_ms"] > self.adaptive_slo_ms:
+            self._adapt_cool = 0
+            self._adapt_hot += 1
+            if self._adapt_hot >= 2 and i + 1 < len(self.serve_sizes):
+                if now - self._last_upshift_t < self._UPSHIFT_PROBE_S:
+                    # The rung just probed failed. The probe marker is
+                    # consumed, so that on a longer ladder the downshifts
+                    # that follow count as descent, not as more failures.
+                    self._upshift_fail_streak += 1
+                    self._upshift_block_until = now + min(
+                        30.0 * (2 ** (self._upshift_fail_streak - 1)), 600.0)
+                    self._last_upshift_t = -1e9
+                self._switch_size(self.serve_sizes[i + 1], snap["p99_ms"])
+                self.size_downshifts += 1
+        elif snap["p99_ms"] < 0.6 * self.adaptive_slo_ms:
+            self._adapt_hot = 0
+            self._adapt_cool += 1
+            if (self._adapt_cool >= 8 and i > 0
+                    and now >= self._upshift_block_until):
+                self._last_upshift_t = now
+                self._switch_size(self.serve_sizes[i - 1], snap["p99_ms"])
+                self.size_upshifts += 1
+        else:
+            self._adapt_hot = 0
+            self._adapt_cool = 0
+
+    def _switch_size(self, size: int, p99_ms: float) -> None:
+        log.info("adaptive resolution: %d -> %d (p99 %.1f ms, SLO %.1f ms)",
+                 self._serve_size, size, p99_ms, self.adaptive_slo_ms)
+        self._serve_size = size
+        self._adapt_stats = RollingStats(window=256)
+        self._adapt_hot = 0
+        self._adapt_cool = 0
 
     def _simulate(self, r: InferenceRequest) -> EngineResult:
         """Random plausible detections (reference onnx_engine.cpp:1133-1177)."""
@@ -799,7 +1180,7 @@ class InferenceEngine:
                             recv_t=r.enqueue_t,
                             decode_ms=max((r.decoded_t - r.enqueue_t) * 1e3,
                                           0.0),
-                            batch_n=1, serve_size=self.model_size)
+                            batch_n=1, serve_size=self._serve_size)
 
     # -------------------------------------------------------- live config
     def update_thresholds(self, confidence: Optional[float] = None,
@@ -815,6 +1196,8 @@ class InferenceEngine:
     def status(self) -> Dict[str, str]:
         lat = self.latency.snapshot()
         e2e = self.e2e_latency.snapshot()
+        host = (self.synthetic_host.snapshot()
+                if self.synthetic_step_ms > 0 else None)
         return {
             "engine": "torch-cuda",
             "device": str(self.device),
@@ -822,7 +1205,11 @@ class InferenceEngine:
             "model_file": os.path.basename(self.config.model_path or ""),
             "model_sha": (self._model_hash or "")[:12],
             "model_size": str(self.model_size),
-            "serve_size": str(self.model_size),
+            # The current rung (the model size unless the adaptive policy
+            # stepped down) and the switches so far.
+            "serve_size": str(self._serve_size),
+            "size_downshifts": str(self.size_downshifts),
+            "size_upshifts": str(self.size_upshifts),
             "classes": str(self.spec.num_classes),
             "simulation": str(self.simulation).lower(),
             "inferences": str(self.inference_count.value),
@@ -835,6 +1222,10 @@ class InferenceEngine:
             "e2e_p99_ms": f"{e2e['p99_ms']:.2f}",
             "avg_batch": f"{self.batch_sizes.snapshot()['avg_ms']:.1f}",
             "warmed": str(self.warmed).lower(),
+            **({"synthetic_step_ms": f"{self.synthetic_step_ms:.2f}",
+                "synthetic_host_avg_ms": f"{host['avg_ms']:.2f}",
+                "synthetic_host_p99_ms": f"{host['p99_ms']:.2f}"}
+               if host is not None else {}),
         }
 
 
