@@ -8,8 +8,9 @@ and the script exits non-zero:
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit as nvidia-smi reports them.
-2. build: nvcc builds csrc/*.cu into one library (ops/_build.py), in under
-   60 s and with no register spills.
+2. build: nvcc builds csrc/*.cu into one library (ops/_build.py; one
+   compile a source, all at once, then one link), in under 60 s and with no
+   register spills.
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    on the inputs the serving step gives it (recorded from one plain step of
    the deployed config at batch 8: 24 1x1 convs, 39 bias+SiLU epilogues,
@@ -115,11 +116,43 @@ and the script exits non-zero:
    state-dict `.pt` and as an `.onnx` initializer file; an engine booted on
    each serves the model (not simulation), and the `.pt` and `.onnx`
    engines' steps equal the `.npz` engine's to the last bit.
-11. report: a `kernels:` line, one JSON line of kernel numbers (launches on
-   the main path, and by path: main, frame cache, each server load, the
-   ladder, each variant, the adaptive load; each kernel's numbers at the
-   yolov8s 640 batch-16 shapes), and the result line
-   `{"ok": true, "device": {...}}` last.
+11. int8: the deployed config with tpu.quantize_int8 (batch buckets
+   1/2/4/8/16/32). The f32 int8 engine's own calibration against the JAX
+   package's (the committed fixture tests/torch_fixtures/
+   jax_int8_f32_step_416.npz: m1 within 1e-5, every conv within
+   CALIB_STEPS int8 steps of the jitted run's); its step, with the JAX
+   calibration carried across, against the JAX int8 step at detection
+   level (int8_fixture_gate: at most twice the detections without a twin
+   that the JAX package's own jitted run and its run op by op have between
+   them). The int8
+   conv kernel against its plain version at every int8 call of the bf16
+   batch-8 and batch-16 steps, in bf16 and f32 (int32 accumulators equal,
+   outputs within one ulp), and once with a dynamic device scale; its
+   back-to-back time, plain time, bound (bytes at 3.35 TB/s, int8
+   operations at 1,979 TOPS) and torch._int_mm's time on the 1x1 calls it
+   accepts. The bf16 int8 forward against the bf16 and f32 forwards
+   without int8 (mean probability error and median box error under 0.05,
+   tests/test_quant.py's limits), and the detections against bf16 (not
+   gated). The int8 path through the entry points (infer_batch, dispatch /
+   complete_many, infer_batch_cached, a hot reload re-quantized and
+   re-calibrated) with every count reset just before and read just after,
+   all four kernels > 0; a step's launches at batch 8 and at batch 32
+   (c2f auto resolves to split; int8 blocks run the slice form): 44 int8
+   convs, 6 1x1 (tensor cores), 13 bias+SiLU, 1 NMS. Device busy, device
+   and wall time of the int8 and the bf16 step at batch 1, 8 and 16. The
+   int8 server: a load of phase 6's clients on the cached default server
+   with its gates, the exactness of its results without and with the
+   cache, then a second load during which /profilez captures
+   PROFILEZ_CAPTURES times from PROFILEZ_DELAY on (each ok, each trace
+   naming all four kernels; a POST during the first answers 409) and the
+   load's gates still hold.
+12. report: a `kernels:` line, one JSON line of kernel numbers (launches on
+   the main path (the int8 path for the int8 conv), and by path: main,
+   frame cache, each server load, the ladder, each variant, the adaptive
+   load, the int8 path, its steps and its server loads; each kernel's
+   numbers at the yolov8s 640 batch-16 shapes, the int8 conv's at the int8
+   batch-16 shapes), and the result line `{"ok": true, "device": {...}}`
+   last.
 """
 
 from __future__ import annotations
@@ -141,6 +174,9 @@ FIXTURE = ROOT / "tests" / "torch_fixtures" / "jax_f32_step_416.npz"
 CONFIG_S640 = ROOT / "configs" / "examples" / "server-16stream-640-s.json"
 FIXTURE_S640 = ROOT / "tests" / "torch_fixtures" / "jax_f32_step_s640.npz"
 CONFIG_ADAPTIVE = ROOT / "configs" / "examples" / "server-64stream-adaptive.json"
+# The JAX package's int8 f32 step at 416 (yolov8n, the deployed weights),
+# its calibrated scales, and the same step run op by op.
+FIXTURE_INT8 = ROOT / "tests" / "torch_fixtures" / "jax_int8_f32_step_416.npz"
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and
 # operations/s by operand type (bf16 on the tensor cores, f32 on the CUDA
@@ -171,12 +207,20 @@ KERNELS = {
                          "zero_latency_yolo_tpu/ops/conv1x1_pallas.py:57"),
     "bias_silu": ("cuda", "zero_latency_yolo_tpu_torch/csrc/kernels.cu",
                   "zero_latency_yolo_tpu/ops/act_pallas.py:40"),
+    # A port-side kernel: the JAX package's int8 conv is an XLA op (the
+    # "w_q" branch of _conv), no Pallas kernel.
+    "conv_int8": ("cuda", "zero_latency_yolo_tpu_torch/csrc/conv_int8_sm90.cu",
+                  "zero_latency_yolo_tpu/models/yolov8.py:287"),
 }
+# The kernels every path without int8 launches (the int8 conv runs only
+# with tpu.quantize_int8).
+PATH3 = ("nms_keep", "conv1x1_bias_act", "bias_silu")
 # The device functions of each kernel, as the profiler names them.
 KERNEL_SYMBOLS = {
     "nms_keep": ("nms_keep_kernel",),
     "conv1x1_bias_act": ("conv1x1_wgmma_kernel", "mm_bias_act_kernel"),
     "bias_silu": ("bias_silu_vec_kernel", "bias_silu_kernel"),
+    "conv_int8": ("conv_int8_kernel",),
 }
 
 
@@ -321,6 +365,20 @@ def compare(torch, got, want, atol: float, rtol: float):
     d = (g - w).abs()
     ok = bool(torch.isfinite(g).all()) and bool((d <= atol + rtol * w.abs()).all())
     return float(d.max()), ok
+
+
+def ulp_distance(torch, a, b):
+    """Elementwise distance of two f32 or bf16 tensors of one type in units
+    in the last place (0: equal bits; NaN counts as far), as int64."""
+    bits, sign = {torch.float32: (torch.int32, 1 << 31),
+                  torch.bfloat16: (torch.int16, 1 << 15)}[a.dtype]
+
+    def ordered(t):
+        i = t.contiguous().view(bits).long()
+        return torch.where(i < 0, -(i + sign), i)
+    d = (ordered(a) - ordered(b)).abs()
+    return torch.where(torch.isnan(a) | torch.isnan(b),
+                       torch.full_like(d, 1 << 40), d)
 
 
 # f32 operations of one IoU test as ops/nms_cuda.py computes it: two max,
@@ -833,6 +891,40 @@ def fixture_gate(got: np.ndarray, want: np.ndarray, conf: float,
                 counts_jax=w["count"].tolist())
 
 
+def int8_fixture_gate(got: np.ndarray, fx, name: str, conf: float,
+                      nms: float) -> dict:
+    """An int8 f32 step (B, 1 + 6*32) against the JAX package's int8 f32
+    step (fx[name]), at detection level: the detections of either run
+    without a twin in the other (twin_match: IoU > 0.85, the same class,
+    confidence within 0.03), summed over the batch, must number at most
+    twice those of the JAX package's own int8 step run op by op against
+    its jitted one (fx[name + "_eager"]). int8 rounds activations to a
+    step of 1/127 of their range, so an f32 input a rounding apart can move
+    one int8 value a whole step and every later conv with it: the JAX
+    package gives detections that differ between its two ways of running
+    the same step, and another run (another summation order) differs by
+    about as much again. A wrong scale, rounding or layout leaves most
+    detections without a twin. `strict` is the 1e-3 fixture_gate, for the
+    record."""
+    from zero_latency_yolo_tpu_torch.ops.nms import unpack_outputs
+
+    def odd(a: np.ndarray) -> list:
+        ua, uw = unpack_outputs(a), unpack_outputs(fx[name])
+        out = []
+        for f in range(len(uw["count"])):
+            lost, extra, _, _ = twin_match(_packed_rows(uw, f),
+                                           _packed_rows(ua, f))
+            out.append(len(lost) + len(extra))
+        return out
+
+    mine, jax_eager = odd(got), odd(fx[f"{name}_eager"])
+    gate = fixture_gate(got, fx[name], conf, nms)
+    return dict(odd=mine, odd_jax_eager=jax_eager,
+                ok=sum(mine) <= 2 * sum(jax_eager), strict=gate["strict"],
+                box_err=gate["box_err"], score_err=gate["score_err"],
+                counts=gate["counts"], counts_jax=gate["counts_jax"])
+
+
 def server_frames() -> list:
     """Eight 160x120 frames: four of the task the weights were trained on
     (cropped from 160x160), four synthetic game frames."""
@@ -905,16 +997,20 @@ def write_weight_files(tree, directory) -> dict:
 
 
 def launch_counts() -> dict:
-    from zero_latency_yolo_tpu_torch.ops import act_cuda, conv1x1_cuda, nms_cuda
+    from zero_latency_yolo_tpu_torch.ops import (act_cuda, conv1x1_cuda,
+                                                 conv_int8_cuda, nms_cuda)
     return {"nms_keep": nms_cuda.launches,
             "conv1x1_bias_act": conv1x1_cuda.launches,
             "conv1x1_wgmma": conv1x1_cuda.launches_by_route["wgmma"],
-            "bias_silu": act_cuda.launches}
+            "bias_silu": act_cuda.launches,
+            "conv_int8": conv_int8_cuda.launches}
 
 
 def reset_launch_counts() -> None:
-    from zero_latency_yolo_tpu_torch.ops import act_cuda, conv1x1_cuda, nms_cuda
+    from zero_latency_yolo_tpu_torch.ops import (act_cuda, conv1x1_cuda,
+                                                 conv_int8_cuda, nms_cuda)
     nms_cuda.launches = conv1x1_cuda.launches = act_cuda.launches = 0
+    conv_int8_cuda.launches = 0
     conv1x1_cuda.launches_by_route = {r: 0 for r in conv1x1_cuda.ROUTES}
 
 
@@ -1048,7 +1144,7 @@ def frame_cache_phase(torch, engine, cfg, smi_line: str) -> dict:
             "frames")
     n_det = [len(r.detections) for r in engine.complete(got)]
     engine.complete(want)
-    require(all(launches[k] > 0 for k in KERNELS),
+    require(all(launches[k] > 0 for k in PATH3),
             f"a kernel was not launched by dispatch_from_cache: {launches}")
     print(f"dispatch_from_cache batch 8 ({fh}x{fw} frames in the {max_h}x"
           f"{max_w} cache) equal to the last bit to dispatch on the "
@@ -1147,13 +1243,17 @@ def frame_cache_phase(torch, engine, cfg, smi_line: str) -> dict:
 
 def server_load(torch, device: str, smi_line: str, cache: bool,
                 engine=None, config: Path = CONFIG, slo_ms=None,
-                label=None, before=None) -> dict:
+                label=None, before=None, tweak=None, also=None,
+                kernels=PATH3) -> dict:
     """One load of the server phase (see the module docstring) on a fresh
     DetectionServer, with the device frame cache or without it, and its
     gates. `config` is the config file served, `slo_ms` replaces its
-    tpu.adaptive_slo_ms, `before(server)` is called just before the load.
-    Returns the load's numbers, its launches, the engine and the /statusz
-    body read after the load."""
+    tpu.adaptive_slo_ms, `tweak(cfg)` changes the config before the server
+    is built, `before(server)` is called just before the load and
+    `also(server, web_port)` during it (its result under "also"); every
+    kernel of `kernels` must launch. Returns the load's
+    numbers, its launches, the engine and the /statusz body read after the
+    load."""
     from zero_latency_yolo_tpu_torch.bench_server import (
         ServerThread, deployed_config, http_get, run_load)
     from zero_latency_yolo_tpu_torch.runtime.server import DetectionServer
@@ -1162,6 +1262,8 @@ def server_load(torch, device: str, smi_line: str, cache: bool,
     cfg = deployed_config(tracking=True, config=config)
     if slo_ms is not None:
         cfg.tpu.adaptive_slo_ms = float(slo_ms)
+    if tweak is not None:
+        tweak(cfg)
     web = cfg.network.web_port
     t_start = time.perf_counter()
     srv = ServerThread(DetectionServer(
@@ -1176,9 +1278,16 @@ def server_load(torch, device: str, smi_line: str, cache: bool,
         require(not engine.simulation, "server engine in simulation mode")
         if before is not None:
             before(server)
+        extra = {}
+
+        def during():
+            status = http_get(web, "/statusz")
+            if also is not None:
+                extra["also"] = also(server, web)
+            return status
         reset_launch_counts()
         load = run_load(torch, server, "threads", SERVER_CLIENTS, SERVER_FPS,
-                        SERVER_SECONDS, during=lambda: http_get(web, "/statusz"))
+                        SERVER_SECONDS, during=during)
         launches = launch_counts()
         code, body = http_get(web, "/statusz")
         require(code == 200, f"GET /statusz answered {code}")
@@ -1234,7 +1343,7 @@ def server_load(torch, device: str, smi_line: str, cache: bool,
             f"statusz engine status: {st['engine']}")
     print(f"server {label} kernels: " + ", ".join(
         f"{k} launches={v}" for k, v in launches.items()), flush=True)
-    require(all(launches[k] > 0 for k in KERNELS),
+    require(all(launches[k] > 0 for k in kernels),
             f"a kernel was not launched while serving: {launches}")
     require(launches["conv1x1_wgmma"] == launches["conv1x1_bias_act"],
             f"bf16 1x1 convs off the tensor cores while serving: {launches}")
@@ -1252,7 +1361,7 @@ def server_load(torch, device: str, smi_line: str, cache: bool,
           f"{load['wall_ms']:.1f} ms, idle share "
           f"{'not measured' if idle is None else f'{idle:.3f}'} (profiler, "
           "last second of the load)", flush=True)
-    return dict(load, launches=launches, engine=engine, statusz=st)
+    return dict(load, launches=launches, engine=engine, statusz=st, **extra)
 
 
 def _served(c, got: list, send) -> None:
@@ -1419,8 +1528,9 @@ def reset_and_read(fn) -> dict:
     return launch_counts()
 
 
-def require_launched(launches: dict, label: str, tensor_cores: bool = True):
-    require(all(launches[k] > 0 for k in KERNELS),
+def require_launched(launches: dict, label: str, tensor_cores: bool = True,
+                     kernels=PATH3):
+    require(all(launches[k] > 0 for k in kernels),
             f"a kernel was not launched on the {label} path: {launches}")
     if tensor_cores:
         require(launches["conv1x1_wgmma"] == launches["conv1x1_bias_act"],
@@ -1850,6 +1960,485 @@ def weights_phase(torch, smi_line: str) -> None:
           "engine's to the last bit", flush=True)
 
 
+INT8_BATCHES = (1, 2, 4, 8, 16, 32)
+# The bf16 steps whose int8 calls are checked and timed (the largest), and
+# the batches at which the int8 and bf16 steps are timed.
+INT8_CHECK_BATCHES = (8, 16)
+INT8_BUSY_BATCHES = (1, 8, 16)
+# The /profilez captures made during the int8 phase's second server load
+# (a load of phase 6), each this many seconds, starting this far into it.
+PROFILEZ_CAPTURES = 3
+PROFILEZ_SECONDS = 0.25
+PROFILEZ_DELAY = 1.0
+# int8 a step for yolov8n (the int8 convs; the unquantized stem and head
+# keep 6 1x1 convs, 13 bias+SiLU passes, and NMS runs once).
+INT8_STEP_LAUNCHES = {"conv_int8": 44, "conv1x1_bias_act": 6,
+                      "conv1x1_wgmma": 6, "bias_silu": 13, "nms_keep": 1}
+PEAK_INT8_OPS_PER_S = 1979e12
+# The card's calibration against the JAX package's: int8 steps a later
+# conv's scale may move (int8_calibration_gate).
+CALIB_STEPS = 6
+
+
+def int8_config(cfg, dtype: str = "bfloat16"):
+    """cfg with tpu.quantize_int8, in `dtype`, over INT8_BATCHES."""
+    out = copy.deepcopy(cfg)
+    out.tpu.quantize_int8 = True
+    out.tpu.dtype = dtype
+    out.tpu.batch_buckets = list(INT8_BATCHES)
+    return out
+
+
+def record_int8_calls(engine, frames_d, hs, ws) -> list:
+    """The inputs one plain step of `engine` hands the int8 conv's plain
+    version: the serving path's own shapes and values."""
+    from zero_latency_yolo_tpu_torch.models import yolov8 as ym
+    calls = []
+    saved = ym.conv_int8_plain
+
+    def rec(*args):
+        calls.append(args)
+        return saved(*args)
+    ym.conv_int8_plain = rec
+    try:
+        engine._build_step(int(frames_d.shape[0]), plain=True)(
+            engine._params, frames_d, hs, ws, engine._class_weights,
+            engine.config.confidence_threshold, engine.config.nms_threshold)
+    finally:
+        ym.conv_int8_plain = saved
+    return calls
+
+
+def int8_call_vs_plain(torch, x, xs, w, ws, b, k, stride, act) -> tuple:
+    """One int8 conv call through the kernel and its plain version: the
+    int32 accumulators must be equal and the outputs within one ulp of x's
+    type (the same f32 arithmetic in the same order; exp may differ in the
+    last bit). Returns (max ulp, elements not bit-equal, elements, max abs
+    error)."""
+    from zero_latency_yolo_tpu_torch.ops import conv_int8_cuda as ci
+    acc = ci.conv_int8_acc(x, xs, w, k, stride)
+    want_acc = ci.conv_int8_acc_plain(x, xs, w, k, stride)
+    require(torch.equal(acc, want_acc),
+            f"conv_int8 {tuple(x.shape)} k{k} s{stride}: "
+            f"{int((acc != want_acc).sum())} int32 accumulators differ from "
+            "the plain version's")
+    got = ci.conv_int8(x, xs, w, ws, b, k, stride, act)
+    want = ci.conv_int8_plain(x, xs, w, ws, b, k, stride, act)
+    ulp = ulp_distance(torch, got, want)
+    top = int(ulp.max())
+    require(top <= 1, f"conv_int8 {tuple(x.shape)} k{k} s{stride} "
+                      f"{x.dtype}: outputs {top} ulp from the plain version")
+    return (top, int((ulp > 0).sum()), ulp.numel(),
+            float((got.float() - want.float()).abs().max()))
+
+
+def int8_bound(x, w, k, stride, cout) -> tuple:
+    """(bytes, int8 operations) of one int8 conv call: x (the slice it
+    reads) once, the packed weight, scales and bias once, the output once;
+    2 * M * Cout * K operations."""
+    b, h, wd, cin = x.shape
+    pad = (k - 1) // 2
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (wd + 2 * pad - k) // stride + 1
+    m = b * ho * wo
+    nbytes = (x.numel() * x.element_size() + w.numel() + 8 * cout + 4
+              + m * cout * x.element_size())
+    return nbytes, 2.0 * m * cout * k * k * cin
+
+
+def check_int8_kernel(torch, calls_by_batch: dict) -> dict:
+    """Every recorded int8 call against the plain version in bf16 (as the
+    step gives it) and in f32 (the same input widened), plus the first
+    call with a dynamic scale computed on the device; then, at the largest
+    batch's calls, the kernel's back-to-back time, the plain version's, the
+    bound, and torch._int_mm's time on the 1x1 calls it accepts (the GEMM
+    alone over inputs already quantized: no quantize, no epilogue)."""
+    from zero_latency_yolo_tpu_torch.ops import conv_int8_cuda as ci
+    tops, not_equal, total, abs_err = {}, {}, {}, 0.0
+    for batch, calls in calls_by_batch.items():
+        for x, xs, w, ws, b, k, stride, act in calls:
+            for dt in (torch.bfloat16, torch.float32):
+                t, ne, n, e = int8_call_vs_plain(torch, x.to(dt), xs, w, ws,
+                                                 b, k, stride, act)
+                key = str(dt).split(".")[-1]
+                tops[key] = max(tops.get(key, 0), t)
+                not_equal[key] = not_equal.get(key, 0) + ne
+                total[key] = total.get(key, 0) + n
+                if dt == torch.bfloat16:
+                    abs_err = max(abs_err, e)
+    x, xs, w, ws, b, k, stride, act = next(iter(calls_by_batch.values()))[0]
+    dyn = ci.dynamic_scale(x)
+    t, ne, n, _ = int8_call_vs_plain(torch, x, dyn, w, ws, b, k, stride, act)
+    print(f"conv_int8 against its plain version at every int8 call of the "
+          f"bf16 step at batch {sorted(calls_by_batch)} "
+          f"({sum(len(c) for c in calls_by_batch.values())} calls, each in "
+          f"bf16 and f32): int32 accumulators equal in all; outputs max ulp "
+          f"{tops}, elements not bit-equal {not_equal} of {total}; a dynamic "
+          f"device scale ({float(dyn):.6g}): max ulp {t}, {ne} of {n} not "
+          f"bit-equal", flush=True)
+    batch = max(calls_by_batch)
+    ms = plain_ms = bound_ms = bytes_s = ops_s = 0.0
+    lib_ms = ms_lib_calls = 0.0
+    lib_calls = 0
+    print(f"conv_int8 calls of the bf16 batch-{batch} step (us per call): H W "
+          "Cin Cout k stride | kernel plain _int_mm bound", flush=True)
+    for x, xs, w, ws, b, k, stride, act in calls_by_batch[batch]:
+        cout = w.shape[0]
+        t_k = time_ms(torch, lambda: ci.conv_int8(x, xs, w, ws, b, k, stride,
+                                                  act))
+        t_p = time_ms(torch, lambda: ci.conv_int8_plain(
+            x, xs, w, ws, b, k, stride, act), iters=3, warmup=1)
+        nbytes, nops = int8_bound(x, w, k, stride, cout)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / PEAK_INT8_OPS_PER_S
+        t_lib = None
+        if k == 1 and stride == 1:
+            cin = x.shape[-1]
+            xq = ci.quantize_activations(x, xs).to(torch.int8).reshape(-1, cin)
+            wt = w[:, :cin].contiguous().t()
+            try:
+                torch._int_mm(xq, wt)
+                t_lib = time_ms(torch, lambda: torch._int_mm(xq, wt))
+            except RuntimeError as e:
+                print(f"  torch._int_mm refuses {tuple(xq.shape)} x "
+                      f"{tuple(wt.shape)}: {str(e).splitlines()[0]}")
+        ms, plain_ms = ms + t_k, plain_ms + t_p
+        bound_ms += 1e3 * max(t_bytes, t_ops)
+        bytes_s, ops_s = bytes_s + t_bytes, ops_s + t_ops
+        if t_lib is not None:
+            lib_ms, ms_lib_calls, lib_calls = (lib_ms + t_lib,
+                                               ms_lib_calls + t_k,
+                                               lib_calls + 1)
+        print(f"  {x.shape[1]:4d} {x.shape[2]:4d} {x.shape[3]:4d} {cout:4d} "
+              f"{k} {stride} | {1e3 * t_k:8.2f} {1e3 * t_p:9.2f} "
+              f"{'-' if t_lib is None else f'{1e3 * t_lib:8.2f}'} "
+              f"{1e6 * max(t_bytes, t_ops):8.2f}", flush=True)
+    return dict(calls=len(calls_by_batch[batch]), batch=batch,
+                max_abs_err=abs_err, max_ulp=tops, not_bit_equal=not_equal,
+                elements=total, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms if lib_calls else None,
+                library_calls=lib_calls, ms_library_calls=ms_lib_calls,
+                bound_ms=bound_ms,
+                bound_by="bytes" if bytes_s >= ops_s else "operations")
+
+
+def int8_calibration_gate(own: dict, fx) -> dict:
+    """The card's own f32 calibration against the JAX package's (fixture:
+    jitted, and run op by op): the first int8 conv, whose input is the
+    unquantized stem's output, within 1e-5 relative of both (the formula,
+    its margin and its float64); every conv within CALIB_STEPS int8 steps
+    (CALIB_STEPS / 127 relative) of the jitted run's. A rounding to int8
+    that goes the other way on the card than on the CPU moves every later
+    conv's inputs by whole steps, as it does between JAX's own two runs
+    (1.6% apart)."""
+    paths = [str(p) for p in fx["x_scale_paths"]]
+    require(sorted(own) == paths, f"calibrated convs {sorted(own)} are not "
+                                  f"the fixture's {paths}")
+    jit = dict(zip(paths, fx["x_scale"].tolist()))
+    eager = dict(zip(paths, fx["x_scale_eager"].tolist()))
+    spread = max(abs(eager[k] / jit[k] - 1) for k in paths)
+    rel_jit = {k: abs(own[k] / jit[k] - 1) for k in paths}
+    rel_eager = {k: abs(own[k] / eager[k] - 1) for k in paths}
+    out = dict(max_rel_jit=max(rel_jit.values()),
+               max_rel_eager=max(rel_eager.values()),
+               equal_jit=sum(own[k] == jit[k] for k in paths),
+               equal_eager=sum(own[k] == eager[k] for k in paths),
+               n=len(paths), jax_spread=spread,
+               m1_rel=(rel_jit["m1"], rel_eager["m1"]))
+    print(f"int8 calibration on the card (f32) against the JAX package's: "
+          f"{out['equal_jit']}/{len(paths)} scales equal to its jitted run's, "
+          f"{out['equal_eager']}/{len(paths)} to its run op by op; max "
+          f"relative difference {out['max_rel_jit']:.3g} / "
+          f"{out['max_rel_eager']:.3g}; m1 {rel_jit['m1']:.3g} / "
+          f"{rel_eager['m1']:.3g}; the JAX package's own spread between its "
+          f"two runs {spread:.3g}", flush=True)
+    require(max(out["m1_rel"]) <= 1e-5,
+            f"m1's calibrated scale {own['m1']} is not the JAX package's "
+            f"({jit['m1']}, {eager['m1']}) within 1e-5")
+    require(out["max_rel_jit"] <= CALIB_STEPS / 127,
+            f"calibration differs from JAX's by {out['max_rel_jit']:.3g}, "
+            f"over {CALIB_STEPS} int8 steps")
+    return out
+
+
+def profilez_captures(web: int) -> dict:
+    """During a load: PROFILEZ_CAPTURES POST /profilez captures of
+    PROFILEZ_SECONDS, from PROFILEZ_DELAY on; while the first runs, GET
+    reports it and a second POST answers 409. Returns each capture's
+    result, the 409's body and the port kernels each trace names."""
+    import threading
+    from zero_latency_yolo_tpu_torch.bench_server import http_get
+    time.sleep(PROFILEZ_DELAY)
+    path = f"/profilez?seconds={PROFILEZ_SECONDS}"
+    results, first = [], {}
+    t = threading.Thread(target=lambda: first.update(
+        zip(("code", "body"), http_get(web, path, "POST"))))
+    t.start()
+    deadline = time.perf_counter() + 30
+    while not json.loads(http_get(web, "/profilez")[1])["capturing"]:
+        require(time.perf_counter() < deadline and t.is_alive(),
+                "GET /profilez never reported the capture running")
+        time.sleep(0.005)
+    busy = http_get(web, path, "POST")
+    t.join(timeout=120)
+    results.append((first["code"], json.loads(first["body"])))
+    for _ in range(PROFILEZ_CAPTURES - 1):
+        code, body = http_get(web, path, "POST")
+        results.append((code, json.loads(body)))
+    for code, out in results:
+        print(f"/profilez capture: {code}, cost ms {out.get('cost_ms')}, "
+              f"files {out.get('files')}", flush=True)
+    named = []
+    for code, out in results:
+        if code != 200:
+            named.append(None)
+            continue
+        trace = (Path(out["dir"]) / "trace.json").read_text()
+        named.append(sorted(n for n, syms in KERNEL_SYMBOLS.items()
+                            if any(s in trace for s in syms)))
+    return dict(results=results, busy=busy, named=named)
+
+
+def int8_phase(torch, smi_line: str, has_cv2: bool) -> dict:
+    """Phase 11, the int8 serving path (see the module docstring). Returns
+    the int8 kernel's report, the launches of the int8 path and of its
+    server loads."""
+    import threading
+    from zero_latency_yolo_tpu_torch.models.weights import flatten, load_params
+    from zero_latency_yolo_tpu_torch.models.yolov8 import forward_decoded
+    from zero_latency_yolo_tpu_torch.ops import quant
+    from zero_latency_yolo_tpu_torch.runtime.engine import (
+        InferenceEngine, InferenceRequest, full_f32_precision)
+    dev = torch.device(DEVICE)
+    cfg = load_config(CONFIG)
+    conf, nms = cfg.confidence_threshold, cfg.nms_threshold
+    bucket = (608, 800)
+    fx = np.load(FIXTURE_INT8)
+    require(float(fx["confidence_threshold"]) == conf
+            and float(fx["nms_threshold"]) == nms,
+            "the int8 fixture's thresholds are not the config's")
+
+    # 1-2. The f32 int8 engine: its own calibration against the JAX
+    # package's, then its step with the JAX calibration carried across
+    # against the JAX int8 step (int8_fixture_gate).
+    require(torch.backends.cudnn.allow_tf32,
+            "cuDNN TF32 is not at PyTorch's default (on)")
+    eng32 = InferenceEngine(int8_config(fixture_config(cfg, fx), "float32"),
+                            device=DEVICE)
+    calib = int8_calibration_gate(quant.x_scales(eng32._params), fx)
+    quant.set_x_scales(eng32._params, dict(zip(
+        (str(p) for p in fx["x_scale_paths"]), fx["x_scale"].tolist())))
+    fixture = {}
+    for name, frames in fixture_frames(fx).items():
+        out = eng32.dispatch(frame_requests(InferenceRequest, frames)).out
+        g = int8_fixture_gate(out.cpu().numpy(), fx, name, conf, nms)
+        fixture[name] = g
+        print(f"int8 f32 step vs JAX int8 f32 step ({name} frames, fixture, "
+              f"the JAX calibration carried across): counts {g['counts']} vs "
+              f"{g['counts_jax']}; detections without a twin per frame "
+              f"{g['odd']} (sum {sum(g['odd'])}), the JAX package's own step "
+              f"run op by op {g['odd_jax_eager']} (sum "
+              f"{sum(g['odd_jax_eager'])}); 1e-3 gate per frame (not gated) "
+              f"{g['strict']}, max box err {g['box_err']:.3g}, max score err "
+              f"{g['score_err']:.3g}", flush=True)
+        require(sum(g["counts_jax"]) > 0, f"int8 fixture gate vacuous on the "
+                                          f"{name} frames")
+        require(g["ok"], f"int8 f32 step on the {name} frames further from "
+                         "the JAX int8 step than twice JAX's own runs are")
+    del eng32
+
+    # 3. The kernel against its plain version at every int8 call of the
+    # bf16 batch-8 and batch-16 steps.
+    cfg8 = int8_config(cfg)
+    eng = InferenceEngine(cfg8, device=DEVICE)
+    require(len(quant.x_scales(eng._params)) == 44,
+            "the bf16 int8 engine did not calibrate its 44 int8 convs")
+    calls = {}
+    with torch.inference_mode():
+        for b in INT8_CHECK_BATCHES:
+            frames_d, hs, ws = staged_batch(torch, [
+                synthetic_frame(800, 600, seed=s, t=0.3 * s)
+                for s in range(b)], bucket, dev)
+            calls[b] = record_int8_calls(eng, frames_d, hs, ws)
+            require(len(calls[b]) == 44, f"{len(calls[b])} int8 calls at "
+                                         f"batch {b}, not 44")
+        report = check_int8_kernel(torch, calls)
+    del calls
+
+    # 4. bf16 int8 against the port's engines without int8, as
+    # tests/test_quant.py holds the JAX package's int8 forward.
+    eng16 = InferenceEngine(cfg, device=DEVICE)
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.tpu.dtype = "float32"
+    eng32 = InferenceEngine(cfg32, device=DEVICE)
+    task = task_frames(8, 416, seed=777)
+    x = torch.from_numpy(task).to(dev).float() / 255.0
+    with torch.inference_mode():
+        got = forward_decoded(eng._params, eng.spec, x,
+                              dtype=torch.bfloat16).float()
+        for label, ref_eng, dt in (("bf16", eng16, torch.bfloat16),
+                                   ("f32", eng32, torch.float32)):
+            with full_f32_precision():
+                ref = forward_decoded(ref_eng._params, ref_eng.spec, x,
+                                      dtype=dt).float()
+            prob = float((got[..., 4:] - ref[..., 4:]).abs().mean())
+            box = float(((got[..., :4] - ref[..., :4]).abs() / 416).median())
+            print(f"int8 bf16 forward vs {label} forward (task frames): mean "
+                  f"probability error {prob:.4g} (limit 0.05), median box "
+                  f"error {box:.4g} of the frame (limit 0.05)", flush=True)
+            require(prob < 0.05 and box < 0.05,
+                    f"int8 forward too far from {label}")
+    treqs = frame_requests(InferenceRequest, list(task))
+    ri, rb = eng.infer_batch(treqs), eng16.infer_batch(treqs)
+    lit = [twin_match(_rows(b.detections), _rows(i.detections))
+           for i, b in zip(ri, rb)]
+    print(f"int8 bf16 vs bf16 detections (task frames, not gated): counts "
+          f"{[len(r.detections) for r in ri]} vs "
+          f"{[len(r.detections) for r in rb]}; frames with every detection "
+          f"twinned {sum(not a and not b for a, b, _, _ in lit)}/{len(lit)}; "
+          f"worst twin IoU {min(w for _, _, w, _ in lit):.4f}, worst "
+          f"confidence delta {max(c for _, _, _, c in lit):.4f}", flush=True)
+
+    # 5. The int8 path through the entry points, counts at 0 just before
+    # and read just after: infer_batch, dispatch / complete_many, the
+    # cached path, and a hot reload applied on this thread.
+    eng.warmup()
+    reqs = [InferenceRequest(client_id=i + 1, frame_id=i, timestamp=i,
+                             width=w, height=h,
+                             data=synthetic_frame(w, h, seed=4 + i, t=0.3 * i))
+            for i, (w, h) in enumerate([(800, 600)] * 11 + [(1920, 1080)] * 2)]
+    reload_dir = ROOT / "build" / "int8_reload"
+    reload_dir.mkdir(parents=True, exist_ok=True)
+    model = reload_dir / "model.npz"
+    tree = load_params(cfg.model_path)
+    np.savez(model, **flatten(tree))
+    eng.config.model_path = str(model)
+
+    def int8_path():
+        res = eng.infer_batch(reqs)
+        pend = [eng.dispatch(reqs[:4]), eng.dispatch(reqs[4:8])]
+        res += [r for rs in eng.complete_many(pend) for r in rs]
+        cache = torch.zeros((8,) + bucket + (3,), dtype=torch.uint8,
+                            device=dev)
+        cache[:, :600] = torch.from_numpy(np.stack(
+            [r.data for r in reqs[:8]])).to(dev)
+        res += eng.infer_batch_cached(reqs[:8], cache, np.full(8, 600),
+                                      np.full(8, 800))
+        before = quant.x_scales(eng._params)
+        np.savez(model, **{k: (v * np.float32(1.05) if k.endswith("/w")
+                               else v) for k, v in flatten(tree).items()})
+        require(eng.maybe_reload(), "the hot reload was not staged")
+        res += eng.infer_batch(reqs[:8])
+        after = quant.x_scales(eng._params)
+        require(sorted(after) == sorted(before) and after != before,
+                "the reload was not quantized and calibrated anew")
+        return res
+    results = []
+    path_launches = reset_and_read(lambda: results.extend(int8_path()))
+    print(f"int8 path: {len(results)} results (infer_batch, dispatch / "
+          f"complete_many, infer_batch_cached, a hot reload re-quantized and "
+          f"re-calibrated on this thread), launches {path_launches}",
+          flush=True)
+    require(len(results) == len(reqs) + 8 + 8 + 8, "missing int8 results")
+    require_launched(path_launches, "int8", kernels=tuple(KERNELS))
+    require(sum(len(r.detections) for r in results) > 0,
+            "no detections on the int8 path")
+
+    # Launches a step: batch 8, and batch 32 where tpu.c2f="auto" resolves
+    # to the split form, which int8 blocks run in the slice form.
+    require(eng._c2f_form(32, 416) == "split",
+            "c2f auto does not resolve to split at batch 32")
+    reqs32 = [InferenceRequest(client_id=i + 1, frame_id=i, timestamp=i,
+                               width=800, height=600,
+                               data=synthetic_frame(800, 600, seed=i))
+              for i in range(32)]
+    per_step = {}
+    for b in (8, 32):
+        per_step[b] = reset_and_read(lambda b=b: eng.complete(
+            eng.dispatch(reqs32[:b])))
+        print(f"int8 step batch {b} ({eng._c2f_form(b, 416)} form "
+              f"resolved): launches {per_step[b]}", flush=True)
+        require(per_step[b] == INT8_STEP_LAUNCHES,
+                f"int8 step at batch {b}: launches {per_step[b]}, want "
+                f"{INT8_STEP_LAUNCHES}")
+
+    # 6. Device busy of the int8 and the bf16 step, in this process.
+    busy = {}
+    for b in INT8_BUSY_BATCHES:
+        frames_d, hs, ws = staged_batch(torch, [
+            synthetic_frame(800, 600, seed=s) for s in range(b)], bucket, dev)
+        for label, e in (("int8", eng), ("bf16", eng16)):
+            step = e.get_step(b, bucket)
+
+            def run(step=step, e=e):
+                return step(e._params, frames_d, hs, ws, e._class_weights,
+                            conf, nms)
+            wall = wall_ms(torch, run)
+            prof, own = profile_step(torch, run)
+            dev_ms = step_device_ms(torch, run)
+            busy[(label, b)] = (prof["busy_ms"], dev_ms, wall)
+            print(f"step {label} batch {b} bucket {bucket[0]}x{bucket[1]} on "
+                  f"{smi_line}: device busy {prof['busy_ms']:.3f} ms "
+                  f"(profiler), device {dev_ms:.3f} ms (CUDA events), wall "
+                  f"{wall:.3f} ms, {prof['kernels']} kernels; in-step "
+                  + ", ".join(f"{n} {ms:.4f}" for n, ms in own.items())
+                  + " ms", flush=True)
+            if label == "int8" and b == 8:
+                report["step_ms"] = own["conv_int8"]
+    report.setdefault("step_ms", None)
+    del eng16, eng32
+
+    # 8-9. The int8 server: a load on the cached default server, the
+    # exactness of its results without and with the cache, then a load
+    # with /profilez captures.
+    def tweak(c):
+        c.tpu.quantize_int8 = True
+        c.tpu.batch_buckets = list(INT8_BATCHES)
+    load = server_load(torch, DEVICE, smi_line, cache=True, tweak=tweak,
+                       label="int8 cached", kernels=tuple(KERNELS))
+    srv_engine = load.pop("engine")
+    require(srv_engine.config.tpu.quantize_int8
+            and len(quant.x_scales(srv_engine._params)) == 44,
+            "the int8 server's engine is not calibrated int8")
+    server_exactness(torch, srv_engine, DEVICE, False, has_cv2)
+    server_exactness(torch, srv_engine, DEVICE, True, has_cv2)
+    caps = {}
+
+    def start_captures(server):
+        # Just before the load starts: the captures run inside it.
+        web = server.config.network.web_port
+        caps["thread"] = threading.Thread(
+            target=lambda: caps.update(profilez_captures(web)))
+        caps["thread"].start()
+
+    def captures_done(server, web):
+        caps.pop("thread").join(timeout=120)
+        return caps
+    prof_load = server_load(torch, DEVICE, smi_line, cache=True,
+                            engine=srv_engine, tweak=tweak,
+                            label="int8 cached, /profilez captures",
+                            before=start_captures, also=captures_done,
+                            kernels=tuple(KERNELS))
+    prof_load.pop("engine")
+    require("results" in caps, "the /profilez captures did not finish")
+    print(f"/profilez during the int8 load: {len(caps['results'])} captures "
+          f"of {PROFILEZ_SECONDS} s: answers "
+          f"{[c for c, _ in caps['results']]}, cost ms (gate held to start, "
+          f"to stop; export) {[o.get('cost_ms') for _, o in caps['results']]}"
+          f", trace files "
+          f"{[o.get('files') for _, o in caps['results']]}; kernels each "
+          f"trace names {caps['named']}; a POST during the first answered "
+          f"{caps['busy'][0]} {caps['busy'][1][:80]!r}", flush=True)
+    require(all(c == 200 and o.get("ok") for c, o in caps["results"]),
+            f"a /profilez capture failed: {caps['results']}")
+    require(caps["busy"][0] == 409, f"a POST during a capture answered "
+                                    f"{caps['busy'][0]}, not 409")
+    require(all(n == sorted(KERNELS) for n in caps["named"]),
+            f"a /profilez trace misses a port kernel: {caps['named']}")
+    return dict(report=report, launches=path_launches, per_step=per_step,
+                calibration=calib, fixture=fixture, busy=busy,
+                server=load["launches"], server_profilez=prof_load["launches"])
+
+
 def main() -> None:
     with Phase("device"):
         import torch
@@ -1867,6 +2456,7 @@ def main() -> None:
         sys.path.insert(0, str(ROOT))
         from zero_latency_yolo_tpu_torch.ops import (_build, act_cuda,
                                                      conv1x1_cuda, nms_cuda)
+        from zero_latency_yolo_tpu_torch.runtime import frames as frames_mod
         from zero_latency_yolo_tpu_torch.runtime.engine import (
             InferenceEngine, InferenceRequest)
         dev = torch.device(DEVICE)
@@ -1914,15 +2504,13 @@ def main() -> None:
                                  width=w, height=h,
                                  data=synthetic_frame(w, h, seed=4 + i, t=0.3 * i))
                 for i, (w, h) in enumerate([(800, 600)] * 11 + [(1920, 1080)] * 2)]
-        nms_cuda.launches = conv1x1_cuda.launches = act_cuda.launches = 0
-        conv1x1_cuda.launches_by_route = {r: 0 for r in conv1x1_cuda.ROUTES}
+        reset_launch_counts()
         results = engine.infer_batch(reqs)
         pend = [engine.dispatch(reqs[:4]), engine.dispatch(reqs[4:8])]
         results += [r for rs in engine.complete_many(pend) for r in rs]
         torch.cuda.synchronize()
-        launches = {"nms_keep": nms_cuda.launches,
-                    "conv1x1_bias_act": conv1x1_cuda.launches,
-                    "bias_silu": act_cuda.launches}
+        counts = launch_counts()
+        launches = {n: counts[n] for n in PATH3}
         by_route = dict(conv1x1_cuda.launches_by_route)
         print(f"main path: {len(results)} results from 5 steps, launches "
               f"{launches}, conv1x1 by route {by_route}", flush=True)
@@ -2058,12 +2646,25 @@ def main() -> None:
     with Phase("weights .pt/.onnx"):
         weights_phase(torch, smi_line)
 
-    by_path = {n: {"main": launches[n], "frame_cache": fc["launches"][n],
+    with Phase("int8"):
+        int8 = int8_phase(torch, smi_line, frames_mod.cv2 is not None)
+
+    # The int8 conv's own path is the int8 path; every other kernel's is
+    # the main path of phase 4.
+    launches["conv_int8"] = int8["launches"]["conv_int8"]
+    report["conv_int8"] = int8["report"]
+    step_ms["conv_int8"] = int8["report"]["step_ms"]
+    by_path = {n: {"main": counts[n], "frame_cache": fc["launches"][n],
                    "server_cached": srv["cached"]["launches"][n],
                    "server_hosted": srv["hosted"]["launches"][n],
                    "ladder_s640": ladder["launches"][n],
                    **{f"variant_{v}": variants[v][n] for v in variants},
-                   "adaptive_server": adaptive["launches"][n]}
+                   "adaptive_server": adaptive["launches"][n],
+                   "int8": int8["launches"][n],
+                   **{f"int8_step_b{b}": int8["per_step"][b][n]
+                      for b in int8["per_step"]},
+                   "int8_server_cached": int8["server"][n],
+                   "int8_server_profilez": int8["server_profilez"][n]}
                for n in KERNELS}
     s640 = ladder["report"]
     print("kernels: " + ", ".join(
@@ -2084,9 +2685,13 @@ def main() -> None:
             if name == "nms_keep" else {}),
          **({"launches_by_route": by_route, "ms_simt": report[name]["ms_simt"]}
             if name == "conv1x1_bias_act" else {}),
-         "at_yolov8s_640_b16": {k: s640[name][k] for k in (
+         **({"at_yolov8s_640_b16": {k: s640[name][k] for k in (
              "calls", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}}
+             "library_ms")}} if name in s640 else {}),
+         **({k: report[name][k] for k in (
+             "batch", "calls", "max_ulp", "not_bit_equal", "elements",
+             "library_calls", "ms_library_calls")}
+            if name == "conv_int8" else {})}
         for name, (route, source, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

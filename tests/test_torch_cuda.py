@@ -14,7 +14,11 @@ and a write flushed after a dispatch does not reach that dispatch's frames.
 The serve-size ladder's paths: both kernels at the distinct shapes of
 yolov8s at 640 (batch 16) and of yolov8n's split C2f at 416 (batch 32), NMS
 at K = 128, and an adaptive downshift on the card whose results equal an
-engine of the lower rung's model size.
+engine of the lower rung's model size. The int8 conv kernel at every int8
+conv shape of yolov8n's int8 step at 416: int32 accumulators equal to the
+plain version's and outputs within one ulp, on exact rounding ties, with a
+dynamic device scale and without SiLU; a failed build or launch raises;
+the int8 step's dispatch returns before the device is done.
 
 Needs an NVIDIA GPU and nvcc: marked `cuda` and skipped elsewhere. This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -29,11 +33,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import torch_nms_cases  # noqa: E402
+from chip_smoke import ulp_distance  # noqa: E402
 from test_torch_serving_shapes import (  # noqa: E402
-    S640_BIAS_SILU_B1, S640_CONV1X1_B1, SERVING_BIAS_SILU_B8,
-    SERVING_CONV1X1_B8, SPLIT_N416_BIAS_SILU_B1, SPLIT_N416_CONV1X1_B1)
+    INT8_N416_CONV_B1, S640_BIAS_SILU_B1, S640_CONV1X1_B1,
+    SERVING_BIAS_SILU_B8, SERVING_CONV1X1_B8, SPLIT_N416_BIAS_SILU_B1,
+    SPLIT_N416_CONV1X1_B1)
 from zero_latency_yolo_tpu_torch.ops import (  # noqa: E402
-    _build, act_cuda, conv1x1_cuda, nms_cuda)
+    _build, act_cuda, conv1x1_cuda, conv_int8_cuda, nms_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -283,7 +289,139 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         nms_cuda.nms_keep(boxes[:, :8:2], classes[:, :4], valid[:, :4], 0.5)
 
 
-def _small_engine(dtype: str, batch_buckets=(2,)):
+def _int8_inputs(dev, h, w, cin, ldx, cout, k, batch=2, dtype=torch.bfloat16,
+                 seed=0):
+    """x (batch, h, w, cin), a channel slice of a (.., ldx) tensor when ldx >
+    cin (as a C2f's y[..., c:]), a packed int8 weight, f32 scales and bias."""
+    g = torch.Generator().manual_seed(seed + h * 7 + cin * 13 + cout + k)
+    full = torch.randn(batch, h, w, ldx, generator=g).to(dev, dtype)
+    x = full[..., ldx - cin:]
+    wq = torch.randint(-127, 128, (cout, k, k, cin), generator=g,
+                       dtype=torch.int8)
+    ws = (torch.rand(cout, generator=g) * 0.02 + 1e-3).to(dev)
+    b = torch.randn(cout, generator=g).to(dev)
+    return x, conv_int8_cuda.pack_weight(wq).to(dev), ws, b
+
+
+def _check_int8(x, x_scale, w, ws, b, k, stride, act=True):
+    """Accumulators equal to the plain version's; outputs within one ulp of
+    x's type (the same f32 arithmetic; exp may differ in the last bit)."""
+    n0 = conv_int8_cuda.launches
+    acc = conv_int8_cuda.conv_int8_acc(x, x_scale, w, k, stride)
+    got = conv_int8_cuda.conv_int8(x, x_scale, w, ws, b, k, stride, act)
+    torch.cuda.synchronize()
+    assert conv_int8_cuda.launches == n0 + 2
+    want_acc = conv_int8_cuda.conv_int8_acc_plain(x, x_scale, w, k, stride)
+    assert torch.equal(acc, want_acc)
+    want = conv_int8_cuda.conv_int8_plain(x, x_scale, w, ws, b, k, stride, act)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    assert int(ulp_distance(torch, got, want).max()) <= 1
+    return acc
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", INT8_N416_CONV_B1, ids=lambda s: str(s))
+def test_conv_int8_serving_shapes(dev, shape, dtype):
+    """Every int8 conv of yolov8n's int8 step at 416 (batch 2), a static
+    scale as calibration gives one."""
+    h, w, cin, ldx, cout, k, stride = shape
+    x, wq, ws, b = _int8_inputs(dev, h, w, cin, ldx, cout, k, dtype=dtype)
+    x_scale = torch.tensor(float(x.abs().amax()) * 1.1 / 127.0, device=dev)
+    acc = _check_int8(x, x_scale, wq, ws, b, k, stride)
+    assert int(acc.abs().max()) > 0
+
+
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,w,cin,ldx,cout,k,stride", [
+    (1, 1, 16, 16, 1, 1, 1), (7, 5, 16, 16, 70, 3, 2), (9, 11, 24, 40, 24, 3, 1),
+    (65, 3, 8, 8, 8, 3, 1), (13, 13, 12, 12, 9, 3, 2), (4, 4, 20, 36, 130, 1, 1)])
+def test_conv_int8_edges(dev, h, w, cin, ldx, cout, k, stride, dtype, act):
+    """Ragged M and N tiles, K below one step, Cin off the 8-channel runs
+    (the scalar gather), a sliced input, a dynamic scale computed on the
+    device, and no SiLU."""
+    x, wq, ws, b = _int8_inputs(dev, h, w, cin, ldx, cout, k, dtype=dtype)
+    _check_int8(x, conv_int8_cuda.dynamic_scale(x), wq, ws, b, k, stride,
+                act)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_int8_rounds_ties_to_even(dev, dtype):
+    """Activations on exact half steps (x / x_scale = n + 0.5) quantize to
+    the even neighbour, as jnp.round: with a 1x1 identity weight the
+    accumulator is the quantized value itself."""
+    vals = torch.tensor([0.5, 1.5, 2.5, -2.5, -3.5, 126.5, -126.5, 127.5,
+                         200.0, -0.5], dtype=dtype, device=dev)
+    cin = 16
+    x = torch.zeros(1, 1, len(vals), cin, dtype=dtype, device=dev)
+    x[0, 0, :, 0] = vals
+    eye = torch.zeros(cin, 1, 1, cin, dtype=torch.int8)
+    eye[:, 0, 0] = torch.eye(cin, dtype=torch.int8)
+    w = conv_int8_cuda.pack_weight(eye).to(dev)
+    acc = conv_int8_cuda.conv_int8_acc(x, torch.tensor(1.0, device=dev), w,
+                                       1, 1)
+    assert acc[0, 0, :, 0].tolist() == [0, 2, 2, -2, -4, 126, -126, 127,
+                                        127, 0]
+    ones = torch.ones(cin, device=dev)
+    _check_int8(x, torch.tensor(1.0, device=dev), w, ones, ones * 0, 1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_scale", [1e-6 * 1.1 / 127, 7.9e-11, 0.0173474,
+                                     0.5, 3.7])
+def test_conv_int8_quantize_is_the_correctly_rounded_quotient(dev, dtype,
+                                                              x_scale):
+    """The kernel's quantize (a reciprocal with two FMA corrections) gives
+    round(x / x_scale) of the IEEE quotient: values on and one f32 step
+    either side of every half step in range, far beyond the clip (where
+    the quotient overflows f32 too, and infinities), far under one half
+    (denormals included) and zeros, through a 1x1 identity weight (the
+    accumulator is the quantized value)."""
+    cin = 16
+    xs = torch.tensor(x_scale, dtype=torch.float32)
+    half = (torch.arange(-140, 141, dtype=torch.float32) + 0.5) * xs
+    g = torch.Generator().manual_seed(3)
+    vals = torch.cat([
+        half, torch.nextafter(half, torch.tensor(float("inf"))),
+        torch.nextafter(half, torch.tensor(-float("inf"))),
+        (torch.rand(4096, generator=g) * 2 - 1) * 300 * xs,
+        (torch.rand(1024, generator=g) * 2 - 1) * 1e-30,
+        torch.tensor([0.0, -0.0, 1e-45, -1e-45, 3e38, -3e38,
+                      float("inf"), -float("inf")])])
+    vals = torch.cat([vals, torch.zeros(-len(vals) % cin)]).to(dtype)
+    x = vals.reshape(-1, 1, 1, cin).to(dev)
+    eye = torch.eye(cin, dtype=torch.int8).reshape(cin, 1, 1, cin)
+    w = conv_int8_cuda.pack_weight(eye).to(dev)
+    ones = torch.ones(cin, device=dev)
+    acc = _check_int8(x, xs.to(dev), w, ones, ones * 0, 1, 1)
+    want = torch.clamp(torch.round(x.float() / xs.to(dev)), -127, 127)
+    assert torch.equal(acc.float(), want)
+
+
+def test_conv_int8_launch_and_build_failures_raise(dev, tmp_path, monkeypatch):
+    """A launch the kernel refuses raises KernelError from the wrapper
+    (nothing falls back to the plain version); so does a source nvcc
+    cannot build."""
+    x, _, ws, b = _int8_inputs(dev, 8, 8, 16, 16, 16, 3)
+    # K padded to 150, not a multiple of the MMA's K step: the wrapper's
+    # checks pass (its padded_k agrees), the kernel's entry refuses.
+    monkeypatch.setattr(conv_int8_cuda, "padded_k", lambda k, cin: 150)
+    w150 = torch.zeros(16, 150, dtype=torch.int8, device=dev)
+    n0 = conv_int8_cuda.launches
+    with pytest.raises(_build.KernelError, match="conv_int8: CUDA error"):
+        conv_int8_cuda.conv_int8(x, torch.tensor(1.0, device=dev), w150, ws,
+                                 b, 3, 1)
+    assert conv_int8_cuda.launches == n0
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "broken.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    monkeypatch.setattr(_build, "_BUILD_DIR", tmp_path / "build")
+    with pytest.raises(_build.KernelError, match="nvcc failed"):
+        _build.build()
+
+
+def _small_engine(dtype: str, batch_buckets=(2,), **tpu):
     """yolov8p at 64 px with NumPy-initialised weights on the card."""
     from zero_latency_yolo_tpu_torch.config import ServerConfig
     from zero_latency_yolo_tpu_torch.models import yolov8 as ym
@@ -295,7 +433,7 @@ def _small_engine(dtype: str, batch_buckets=(2,)):
         "tpu": {"variant": "yolov8p", "num_classes": 4, "dtype": dtype,
                 "batch_buckets": list(batch_buckets),
                 "frame_buckets": [[96, 128]],
-                "pre_nms_topk": 64}})
+                "pre_nms_topk": 64, **tpu}})
     return InferenceEngine(cfg, params=ym.init_params(0, ym.get_spec(
         "yolov8p", 4)), device="cuda")
 
@@ -304,8 +442,21 @@ def test_dispatch_returns_before_the_device_is_done(dev):
     """A spin of the GPU queued before dispatch is still running when
     dispatch returns: dispatch waits neither for earlier steps nor for its
     own uploads."""
+    _dispatch_returns_early(_small_engine("bfloat16"))
+
+
+def test_int8_dispatch_returns_before_the_device_is_done(dev):
+    """The same for the int8 step: its activation scales stay on the
+    device (calibrated, and dynamic where a block has none)."""
+    eng = _small_engine("bfloat16", quantize_int8=True)
+    assert "x_scale" in eng._params["m1"]
+    _dispatch_returns_early(eng)
+    del eng._params["m2"]["cv1"]["x_scale"]  # one dynamic scale
+    _dispatch_returns_early(eng)
+
+
+def _dispatch_returns_early(eng):
     from zero_latency_yolo_tpu_torch.runtime.engine import InferenceRequest
-    eng = _small_engine("bfloat16")
     rng = np.random.default_rng(0)
     reqs = [InferenceRequest(client_id=i + 1, frame_id=i, timestamp=i,
                              width=128, height=96,

@@ -4,7 +4,11 @@ and jax_f32_step_s640.npz (yolov8s at 640 and at its 512 rung): the port's
 plain f32 step (CPU) is held to them at the 1e-3 gate of
 tests/test_model_parity.py:54-63, with the comparison chip_smoke.py uses on
 the card (`fixture_gate`), and the 416 fixture is held to the JAX step it
-records."""
+records. The int8 fixture jax_int8_f32_step_416.npz (yolov8n at 416 with
+tpu.quantize_int8) holds the port's plain int8 step to the JAX int8 step
+run op by op, and, with the jitted JAX run's calibration carried across,
+to the jitted step within the JAX package's own spread between the two
+(`int8_fixture_gate`, the card's gate)."""
 
 import importlib.util
 from pathlib import Path
@@ -142,3 +146,79 @@ def test_plain_f32_step_matches_jax_s640_fixture(rung):
         total += sum(gate["counts_jax"])
         assert all(gate["strict"]), (name, gate["notes"])
     assert total > 0, "vacuous: no detections"
+
+
+def _fixture_int8():
+    return np.load(chip_smoke.FIXTURE_INT8)
+
+
+def _int8_engine(fx):
+    cfg = chip_smoke.fixture_config(_port_config(), fx)
+    cfg.tpu.quantize_int8 = True
+    return pt_engine.InferenceEngine(cfg, device="cpu")
+
+
+def test_int8_fixture_records_what_made_it():
+    from zero_latency_yolo_tpu_torch.ops import quant
+    fx = _fixture_int8()
+    cfg = _port_config()
+    assert int(fx["task_seed"]) == make_jax_fixture.TASK_SEED
+    assert tuple(fx["game_seeds"]) == make_jax_fixture.GAME_SEEDS
+    assert tuple(fx["task_bucket"]) == make_jax_fixture.TASK_BUCKET
+    assert float(fx["confidence_threshold"]) == cfg.confidence_threshold
+    assert float(fx["nms_threshold"]) == cfg.nms_threshold
+    assert make_jax_fixture.int8_config_dict()["tpu"]["quantize_int8"]
+    for key in ("task", "game", "task_eager", "game_eager"):
+        assert fx[key].shape == (8, 1 + 6 * 32), key
+    paths = [str(p) for p in fx["x_scale_paths"]]
+    eng = _int8_engine(fx)
+    assert sorted(paths) == paths == sorted(quant.x_scales(eng._params))
+    assert fx["x_scale"].dtype == fx["x_scale_eager"].dtype == np.float32
+    assert len(paths) == 44
+
+
+def test_plain_int8_step_equals_the_jax_int8_step_run_op_by_op():
+    """The deployed yolov8n at 416 with tpu.quantize_int8, f32, plain
+    kernel versions on the CPU: the engine's own calibration equals the
+    JAX engine's run op by op bit for bit, and its step equals that JAX
+    step within the 1e-3 gate (counts and classes equal) on both frame
+    sets."""
+    from zero_latency_yolo_tpu_torch.ops import quant
+    fx = _fixture_int8()
+    cfg = _port_config()
+    eng = _int8_engine(fx)
+    own = quant.x_scales(eng._params)
+    assert [own[str(p)] for p in fx["x_scale_paths"]] == \
+        fx["x_scale_eager"].tolist()
+    for name, frames in chip_smoke.fixture_frames(fx).items():
+        out = eng.dispatch(chip_smoke.frame_requests(
+            pt_engine.InferenceRequest, frames)).out.numpy()
+        gate = chip_smoke.fixture_gate(out, fx[f"{name}_eager"],
+                                       cfg.confidence_threshold,
+                                       cfg.nms_threshold)
+        assert sum(gate["counts_jax"]) > 0, "vacuous: no detections"
+        assert all(gate["strict"]), (name, gate["notes"])
+
+
+def test_plain_int8_step_with_the_jax_scales_within_the_jax_spread():
+    """The JAX engine's (jitted) calibration carried across: the port's
+    int8 step against the jitted JAX int8 step at detection level, at most
+    twice the detections without a twin that the JAX package's own step
+    run op by op has against it (chip_smoke.int8_fixture_gate, the card's
+    gate); on the CPU not more than that at all."""
+    from zero_latency_yolo_tpu_torch.ops import quant
+    fx = _fixture_int8()
+    cfg = _port_config()
+    eng = _int8_engine(fx)
+    quant.set_x_scales(eng._params, dict(zip(
+        (str(p) for p in fx["x_scale_paths"]), fx["x_scale"].tolist())))
+    for name, frames in chip_smoke.fixture_frames(fx).items():
+        out = eng.dispatch(chip_smoke.frame_requests(
+            pt_engine.InferenceRequest, frames)).out.numpy()
+        gate = chip_smoke.int8_fixture_gate(out, fx, name,
+                                            cfg.confidence_threshold,
+                                            cfg.nms_threshold)
+        print(f"{name}: twinless detections {gate['odd']} (JAX op by op: "
+              f"{gate['odd_jax_eager']}); 1e-3 gate {gate['strict']}")
+        assert gate["ok"], (name, gate)
+        assert sum(gate["odd"]) <= sum(gate["odd_jax_eager"]), (name, gate)

@@ -59,9 +59,10 @@ def test_package_imports_with_jax_blocked():
 
 
 def test_build_runs_nvcc_once_per_source_hash(tmp_path, monkeypatch):
-    """build() calls the nvcc it finds with the repo's sources, installs the
-    output atomically under a name hashed from sources and flags, and
-    reuses it; a failing compiler raises with its output."""
+    """build() calls the nvcc it finds once a source (all started together)
+    and once to link, installs the output atomically under a name hashed
+    from sources and flags, and reuses it; a failing compiler raises with
+    its output and leaves nothing behind."""
     from zero_latency_yolo_tpu_torch.ops import _build
     bindir = tmp_path / "cuda" / "bin"
     bindir.mkdir(parents=True)
@@ -83,12 +84,19 @@ def test_build_runs_nvcc_once_per_source_hash(tmp_path, monkeypatch):
     args = log.read_text().split()
     assert "arch=compute_90a,code=sm_90a" in args
     assert str(PORT / "csrc" / "kernels.cu") in args
+    calls = log.read_text().splitlines()
+    sources = sorted((PORT / "csrc").glob("*.cu"))
+    assert len(sources) >= 4 and len(calls) == len(sources) + 1
+    assert sorted(c.split()[-1] for c in calls[:-1]) == [str(s)
+                                                         for s in sources]
+    assert all(" -c " in c for c in calls[:-1])
+    assert "-shared" in calls[-1].split()          # one link of the objects
     assert _build.build() == (path, "", 0.0)       # cached: no second call
-    assert len(log.read_text().splitlines()) == 1
+    assert len(log.read_text().splitlines()) == len(sources) + 1
 
     path.unlink()
     nvcc.write_text("#!/bin/sh\necho 'kernels.cu(1): error' >&2\nexit 2\n")
-    with pytest.raises(RuntimeError, match="nvcc failed"):
+    with pytest.raises(_build.KernelError, match="nvcc failed"):
         _build.build()
     assert not list((tmp_path / "build").iterdir())  # no partial library
 

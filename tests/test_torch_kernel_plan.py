@@ -17,7 +17,8 @@ torch = pytest.importorskip("torch")
 import torch_nms_cases  # noqa: E402
 from test_torch_serving_shapes import (  # noqa: E402
     S640_BIAS_SILU_B1, S640_CONV1X1_B1, SERVING_BIAS_SILU_B8,
-    SERVING_CONV1X1_B8, SPLIT_N416_BIAS_SILU_B1, SPLIT_N416_CONV1X1_B1)
+    INT8_N416_CONV_B1, SERVING_CONV1X1_B8, SPLIT_N416_BIAS_SILU_B1,
+    SPLIT_N416_CONV1X1_B1)
 from zero_latency_yolo_tpu_torch.models import yolov8 as ym  # noqa: E402
 from zero_latency_yolo_tpu_torch.models.weights import (  # noqa: E402
     params_from_jax, place_params)
@@ -61,6 +62,49 @@ def _path_calls(batch: int, variant: str = "yolov8n", size: int = 416,
     finally:
         ym.conv1x1_bias_act_plain, ym.bias_silu_plain = saved
     return conv, act
+
+
+@pytest.mark.parametrize("c2f", ["slice", "split"])
+def test_int8_path_has_the_recorded_calls(c2f):
+    """The int8 step (yolov8n at 416, tpu.quantize_int8) calls the int8
+    conv 44 times (18 1x1, 26 k=3) at the shapes the card tests run, in
+    either C2f form (int8 blocks take the slice form); the unquantized
+    stem and head keep 6 1x1 calls and 13 bias+SiLU passes."""
+    from zero_latency_yolo_tpu_torch.ops import conv_int8_cuda
+    from zero_latency_yolo_tpu_torch.ops.quant import quantize_params
+    spec = ym.get_spec("yolov8n", 4)
+    params = place_params(params_from_jax(quantize_params(ym.init_params(
+        0, spec))), "cpu", torch.float32, c2f_split=(c2f == "split"))
+    calls, counts = [], {"conv1x1": 0, "bias_silu": 0}
+    saved = (ym.conv_int8_plain, ym.conv1x1_bias_act_plain,
+             ym.bias_silu_plain)
+
+    def rec_int8(x, x_scale, w, w_scale, b, k, stride, act=True):
+        calls.append((x.shape[1], x.shape[2], x.shape[3], x.stride(2),
+                      w.shape[0], k, stride))
+        return saved[0](x, x_scale, w, w_scale, b, k, stride, act)
+
+    def counting(name, fn):
+        def rec(*a, **k):
+            counts[name] += 1
+            return fn(*a, **k)
+        return rec
+    ym.conv_int8_plain = rec_int8
+    ym.conv1x1_bias_act_plain = counting("conv1x1", saved[1])
+    ym.bias_silu_plain = counting("bias_silu", saved[2])
+    try:
+        with torch.inference_mode():
+            ym.forward_raw(params, spec, torch.rand(1, 416, 416, 3),
+                           plain=True, c2f=c2f)
+    finally:
+        (ym.conv_int8_plain, ym.conv1x1_bias_act_plain,
+         ym.bias_silu_plain) = saved
+    assert calls == INT8_N416_CONV_B1
+    assert sum(c[5] == 1 for c in calls) == 18
+    assert sum(c[5] == 3 for c in calls) == 26
+    assert counts == {"conv1x1": 6, "bias_silu": 13}
+    assert all(conv_int8_cuda.padded_k(k, cin) % conv_int8_cuda.K_STEP == 0
+               for _, _, cin, _, _, k, _ in calls)
 
 
 @pytest.mark.parametrize("batch", BATCHES)

@@ -578,17 +578,122 @@ def test_http_header_line_cap(fresh):
     assert _http(web, b"GET /statusz HTTP/1.1\r\n" + junk) == b""
 
 
-def test_statusz_and_profilez_over_http(fresh):
-    """GET /statusz answers with the engine's status; /profilez answers
-    404 until a profiler is wired."""
+def test_statusz_and_profilez_over_http(fresh, tmp_path):
+    """GET /statusz answers with the engine's status; GET /profilez with the
+    capture status (the profiler is wired)."""
     web = free_port(socket.SOCK_STREAM)
-    fresh(web_port=web)
+    fresh(web_port=web, logging={"log_file": str(tmp_path / "s.log")})
     data = _http(web, b"GET /statusz HTTP/1.1\r\nHost: x\r\n\r\n")
     assert data.startswith(b"HTTP/1.1 200")
     st = json.loads(data.split(b"\r\n\r\n", 1)[1])
     assert st["engine"]["engine"] == "torch-cuda"
     data = _http(web, b"GET /profilez HTTP/1.1\r\nHost: x\r\n\r\n")
-    assert data.startswith(b"HTTP/1.1 404") and b"not wired" in data
+    assert data.startswith(b"HTTP/1.1 200")
+    assert set(json.loads(data.split(b"\r\n\r\n", 1)[1])) == {
+        "capturing", "last"}
+
+
+def _http_json(port, method, path):
+    data = _http(port, f"{method} {path} HTTP/1.1\r\nHost: x\r\n"
+                       "Content-Length: 0\r\n\r\n".encode())
+    head, body = data.split(b"\r\n\r\n", 1)
+    return int(head.split()[1]), json.loads(body)
+
+
+def test_profilez_routes_on_the_port_server(fresh, tmp_path):
+    """The cases of tests/test_web.py's /profilez test on the port's server
+    with its real capture: GET reports status; POST in range captures a
+    Chrome trace under the log directory's torch-trace/; out of range or
+    malformed 400; a POST while a capture runs 409."""
+    web = free_port(socket.SOCK_STREAM)
+    fresh(web_port=web, logging={"log_file": str(tmp_path / "s.log")})
+    code, st = _http_json(web, "GET", "/profilez")
+    assert code == 200 and st["capturing"] is False
+    code, out = _http_json(web, "POST", "/profilez?seconds=0.1")
+    assert code == 200 and out["ok"] and out["seconds"] == 0.1
+    assert Path(out["dir"]).parent == tmp_path / "torch-trace"
+    names = [f["name"] for f in out["files"]]
+    assert names == ["trace.json"] and out["files"][0]["size"] > 0
+    assert json.loads((Path(out["dir"]) / "trace.json").read_text())
+    code, st = _http_json(web, "GET", "/profilez")
+    assert code == 200 and st["last"]["dir"] == out["dir"]
+    for bad in ("99", "0.001", "abc", "nan"):
+        assert _http_json(web, "POST", f"/profilez?seconds={bad}")[0] == 400
+    long = threading.Thread(
+        target=lambda: _http_json(web, "POST", "/profilez?seconds=1.5"))
+    long.start()
+    try:
+        assert _poll(lambda: _http_json(web, "GET", "/profilez")[1][
+            "capturing"])
+        code, out = _http_json(web, "POST", "/profilez?seconds=0.1")
+        assert code == 409 and "in flight" in out["error"]
+    finally:
+        long.join(timeout=WAIT)
+
+
+def test_profilez_capture_overlapping_engine_calls(tmp_path, monkeypatch):
+    """A capture while the batcher serves a real model on the CPU: the
+    profiler starts and stops only while no engine call runs (the batcher's
+    device_gate), the trace holds the step's operators, and every frame
+    sent during the capture is served."""
+    import torch.profiler as tp
+    cfg = sim_config(web_port=0, logging={"log_file": str(tmp_path / "s.log")},
+                     tpu={"frame_buckets": [[96, 96]], "batch_buckets": [1, 2],
+                          "batch_window_ms": 1.0})
+    engine = _pico_engine()
+    inside, events = [0], []
+    for name in ("dispatch", "complete_many"):
+        real = getattr(engine, name)
+
+        def wrapped(*a, _real=real, **k):
+            inside[0] += 1
+            try:
+                time.sleep(0.002)  # widen the window a stop could hit
+                return _real(*a, **k)
+            finally:
+                inside[0] -= 1
+        setattr(engine, name, wrapped)
+
+    class Watched(tp.profile):
+        def start(self):
+            events.append(("start", inside[0]))
+            return super().start()
+
+        def stop(self):
+            events.append(("stop", inside[0]))
+            return super().stop()
+    monkeypatch.setattr(tp, "profile", Watched)
+    h = ServerHarness(DetectionServer(cfg, engine=engine, device="cpu",
+                                      use_device_cache=False))
+    server = h.start()
+    c = _client(server.port)
+    try:
+        c.connect()
+        c.start_receiver()
+        from zero_latency_yolo_tpu_torch.utils import profiling
+        result = {}
+        t = threading.Thread(target=lambda: result.update(
+            server.management.profile_fn(0.6)))
+        t.start()
+        sent = 0
+        while t.is_alive() and sent < 400:
+            c.send_raw_frame(synthetic_frame(96, 64, seed=sent))
+            sent += 1
+            time.sleep(0.01)
+        t.join(timeout=WAIT)
+        assert result.get("ok"), result
+        got = c.wait_results(1, timeout=WAIT)
+        assert got
+        assert _poll(lambda: server.engine.inference_count.value
+                     + server.engine.frames_dropped.value >= sent)
+        assert [e[0] for e in events] == ["start", "stop"]
+        assert all(n == 0 for _, n in events), events
+        trace = (Path(result["dir"]) / "trace.json").read_text()
+        assert "aten::conv2d" in trace
+        assert profiling.capture_status()["capturing"] is False
+    finally:
+        c.stop()
+        h.stop()
 
 
 def test_bind_address_scopes_udp_and_web(fresh):

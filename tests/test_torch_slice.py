@@ -179,15 +179,14 @@ def test_engine_dispatch_paths_agree():
 
 
 def test_engine_refuses_unported_options():
-    """Only int8 and a serving mesh are refused; the layout switches, the
+    """Only a serving mesh is refused; int8, the layout switches, the
     other preprocess modes and a serve-size ladder construct."""
     for extra in ({"stem": "s2d"}, {"select": "perlevel"}, {"c2f": "split"},
                   {"serve_sizes": [32]}, {"preprocess": "letterbox"},
-                  {"preprocess": "stretch"}):
+                  {"preprocess": "stretch"}, {"quantize_int8": True}):
         pt_engine.InferenceEngine(ServerConfig.from_dict(_engine_cfg(extra)),
                                   params=_spread_params(0), device="cpu")
-    for extra in ({"quantize_int8": True}, {"mesh_data": 2},
-                  {"mesh_model": 2}):
+    for extra in ({"mesh_data": 2}, {"mesh_model": 2}):
         with pytest.raises(ValueError, match="not implemented"):
             pt_engine.InferenceEngine(
                 ServerConfig.from_dict(_engine_cfg(extra)),

@@ -1,6 +1,6 @@
 """The port's step variants and weight loaders against the JAX package on the
 CPU (f32, yolov8p, plain kernel versions): the letterbox, stretch and
-space-to-depth preprocess; the engine with tpu.c2f="split", tpu.stem="s2d",
+space-to-depth preprocess and the row/column-gather letterbox; the engine with tpu.c2f="split", tpu.stem="s2d",
 tpu.select="perlevel" and the other tpu.preprocess values, at both rungs of
 a ladder; resolve_c2f; the kernels a step calls in each C2f form; and the
 `.pt` / `.onnx` readers (the cases of tests/test_weights.py), down to an
@@ -43,7 +43,8 @@ def _frames():
 @pytest.mark.parametrize("name,dtype", [
     ("letterbox_batch", None), ("stretch_batch", None),
     ("letterbox_batch_mxu_s2d", "float32"),
-    ("letterbox_batch_mxu_s2d", "bfloat16")])
+    ("letterbox_batch_mxu_s2d", "bfloat16"),
+    ("letterbox_batch_rowcol", "float32")])
 def test_preprocess_matches_jax(name, dtype, size):
     """Each preprocess function against the JAX one on frames padded into a
     72x96 bucket with three true sizes (edge clipping, the FILL border, the
@@ -57,6 +58,26 @@ def test_preprocess_matches_jax(name, dtype, size):
                                 torch.from_numpy(ws), size, *extra_p).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("size", [64, 32])
+def test_rowcol_letterbox_bf16_within_one_bf16_rounding_of_jax(size):
+    """letterbox_batch_rowcol's lerps in bf16: XLA keeps them in f32 inside
+    its fusion and rounds where it stores, PyTorch rounds every operation;
+    the two stay within one bf16 rounding of a value in [0, 255] (1.0 at
+    128..255), divided by 255; and within two (the row stage's and the
+    column stage's) of letterbox_batch in f32."""
+    fr, hs, ws = _frames(), _SIZES[:, 0].copy(), _SIZES[:, 1].copy()
+    want = np.asarray(jax_pre.letterbox_batch_rowcol(
+        jnp.asarray(fr), jnp.asarray(hs), jnp.asarray(ws), size, jnp.bfloat16))
+    got = pt_pre.letterbox_batch_rowcol(
+        torch.from_numpy(fr), torch.from_numpy(hs), torch.from_numpy(ws),
+        size, torch.bfloat16).numpy()
+    f32 = pt_pre.letterbox_batch(torch.from_numpy(fr), torch.from_numpy(hs),
+                                 torch.from_numpy(ws), size).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1.0 / 255, rtol=0)
+    np.testing.assert_allclose(got, f32, atol=2.0 / 255, rtol=0)
 
 
 # ------------------------------------------------------------- step variants

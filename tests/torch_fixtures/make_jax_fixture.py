@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Write the JAX engine's f32 serving steps as fixtures for the PyTorch port,
-beside this file: `jax_f32_step_416.npz` (yolov8n at 416) and
-`jax_f32_step_s640.npz` (yolov8s at 640 and at its 512 rung).
+beside this file: `jax_f32_step_416.npz` (yolov8n at 416),
+`jax_f32_step_s640.npz` (yolov8s at 640 and at its 512 rung) and
+`jax_int8_f32_step_416.npz` (yolov8n at 416 with tpu.quantize_int8).
 
-    JAX_PLATFORMS=cpu python tests/torch_fixtures/make_jax_fixture.py [--only 416|s640]
+    JAX_PLATFORMS=cpu python tests/torch_fixtures/make_jax_fixture.py [--only 416|s640|int8]
 
 Runs the JAX package's `InferenceEngine` on the CPU in f32, through the
 configured `letterbox_mxu` preprocess, with `artifacts/yolov8n_trained_416.npz`
@@ -26,10 +27,23 @@ with `artifacts/yolov8s_trained_ms640.npz`, at batch 4: "task" is
 `synthetic_frame(800, 600, seed=s, t=0.3 * s)` for s in 20..23 in the 608x800
 bucket, each through the step at 640 and at 512 (keys task_640, game_640,
 task_512, game_512).
+
+The int8 fixture is the 416 one with `tpu.quantize_int8` set: the JAX
+engine quantizes the weights and calibrates its static activation scales
+at construction. It holds the same two batches' packed outputs (`task`,
+`game`) and the calibrated scales (`x_scale`, one an int8 conv, named by
+`x_scale_paths` as `models/weights.py` `flatten` names the blocks), and
+the same again from the same engine run eagerly, op by op, under
+`jax.disable_jit()` (`task_eager`, `game_eager`, `x_scale_eager`): the
+spread of the JAX package's own int8 step between two ways of running the
+same function. A value that one run rounds to int8 up and the other down
+(their f32 inputs a rounding apart) moves every later conv's input and its
+maxima, so the two runs' later scales and their detections differ.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -50,6 +64,8 @@ GAME_SEEDS = tuple(range(4, 12))
 # The deployed frame buckets with a 416x416 bucket in front, so that the
 # task frames take an identity letterbox.
 TASK_BUCKET = (416, 416)
+
+OUT_INT8 = HERE / "jax_int8_f32_step_416.npz"
 
 OUT_S640 = HERE / "jax_f32_step_s640.npz"
 CONFIG_S640 = REPO / "configs" / "examples" / "server-16stream-640-s.json"
@@ -85,10 +101,12 @@ def config_dict(path: Path = CONFIG, task_bucket=TASK_BUCKET) -> dict:
     return cfg
 
 
-def jax_packed(cfg_dict=None, sets=None, sizes=(None,)) -> dict:
+def jax_packed(cfg_dict=None, sets=None, sizes=(None,), out_engine=None
+               ) -> dict:
     """{name: packed (B, 193) f32} of the JAX engine's f32 step, one entry a
     frame set and serve size (named "<set>_<size>" when a size is given);
-    by default the 416 fixture's."""
+    by default the 416 fixture's. `out_engine`, a list, receives the
+    engine."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     from zero_latency_yolo_tpu.config import ServerConfig
@@ -98,6 +116,8 @@ def jax_packed(cfg_dict=None, sets=None, sizes=(None,)) -> dict:
     assert cfg.tpu.preprocess == "letterbox_mxu", cfg.tpu.preprocess
     engine = InferenceEngine(cfg)
     assert not engine.simulation, f"{cfg.model_path} did not load"
+    if out_engine is not None:
+        out_engine.append(engine)
     packed = {}
     for name, frames in (sets or frame_sets()).items():
         reqs = [InferenceRequest(client_id=i + 1, frame_id=i, timestamp=i,
@@ -108,6 +128,20 @@ def jax_packed(cfg_dict=None, sets=None, sizes=(None,)) -> dict:
             assert out.shape == (len(frames), 1 + 6 * 32), out.shape
             packed[name if size is None else f"{name}_{size}"] = out
     return packed
+
+
+def int8_config_dict() -> dict:
+    cfg = config_dict()
+    cfg["tpu"]["quantize_int8"] = True
+    return cfg
+
+
+def jax_x_scales(engine) -> dict:
+    """{block path: x_scale} of a JAX int8 engine's calibrated params."""
+    from zero_latency_yolo_tpu.models.weights import flatten
+    return {k[:-len("/x_scale")]: float(v)
+            for k, v in flatten(engine._params).items()
+            if k.endswith("/x_scale")}
 
 
 def main() -> None:
@@ -126,6 +160,40 @@ def main() -> None:
             nms_threshold=np.float64(cfg["nms_threshold"]),
             task_bucket=np.array(TASK_BUCKET))
         print(f"wrote {OUT.relative_to(REPO)} ({OUT.stat().st_size} bytes)")
+    if only in (None, "int8"):
+        import jax
+        runs = {}
+        for mode in ("jit", "eager"):
+            engines = []
+            with (jax.disable_jit() if mode == "eager"
+                  else contextlib.nullcontext()):
+                packed = jax_packed(int8_config_dict(), out_engine=engines)
+            runs[mode] = (packed, jax_x_scales(engines[0]))
+            for name, out in packed.items():
+                print(f"int8 {mode} {name}: counts "
+                      f"{out[:, 0].astype(int).tolist()}", flush=True)
+        (packed, scales), (eager, eager_scales) = runs["jit"], runs["eager"]
+        assert set(eager_scales) == set(scales)
+        paths = sorted(scales)
+        rel = max(abs(eager_scales[k] / scales[k] - 1) for k in paths)
+        print(f"int8: {len(paths)} calibrated convs; eager against jit "
+              f"calibration: max relative difference {rel:.3g}, "
+              f"{sum(eager_scales[k] == scales[k] for k in paths)} equal",
+              flush=True)
+        cfg = int8_config_dict()
+        np.savez_compressed(
+            OUT_INT8, task=packed["task"], game=packed["game"],
+            task_eager=eager["task"], game_eager=eager["game"],
+            x_scale_paths=np.array(paths),
+            x_scale=np.array([scales[k] for k in paths], np.float32),
+            x_scale_eager=np.array([eager_scales[k] for k in paths],
+                                   np.float32),
+            task_seed=np.int64(TASK_SEED), game_seeds=np.array(GAME_SEEDS),
+            confidence_threshold=np.float64(cfg["confidence_threshold"]),
+            nms_threshold=np.float64(cfg["nms_threshold"]),
+            task_bucket=np.array(TASK_BUCKET))
+        print(f"wrote {OUT_INT8.relative_to(REPO)} "
+              f"({OUT_INT8.stat().st_size} bytes)")
     if only in (None, "s640"):
         cfg = config_dict(CONFIG_S640, TASK_BUCKET_S640)
         packed = jax_packed(cfg, frame_sets_s640(), RUNGS_S640)

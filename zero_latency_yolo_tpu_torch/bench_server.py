@@ -91,10 +91,12 @@ class ServerThread:
             self.thread.join(timeout=10)
 
 
-def http_get(port: int, path: str) -> tuple:
-    """(status code, body) of GET path on 127.0.0.1:port."""
+def http_get(port: int, path: str, method: str = "GET") -> tuple:
+    """(status code, body) of GET (or `method`, with no body) path on
+    127.0.0.1:port."""
     with socket.create_connection(("127.0.0.1", port), timeout=30) as sock:
-        sock.sendall(f"GET {path} HTTP/1.1\r\nHost: x\r\n\r\n".encode())
+        sock.sendall(f"{method} {path} HTTP/1.1\r\nHost: x\r\n"
+                     "Content-Length: 0\r\n\r\n".encode())
         data = b""
         while True:
             chunk = sock.recv(65536)
@@ -278,13 +280,8 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
     complete_many = engine.complete_many
     dispatch_with = cache.dispatch_with if cache is not None else None
 
-    # Every engine call the batcher makes during the load holds `gate`, so
-    # that the profiler starts and stops between them (device_idle_share).
-    gate = threading.RLock()
-
     def counted(pendings):
-        with gate:
-            out = complete_many(pendings)
+        out = complete_many(pendings)
         for results in out:
             served_at.update(r.serve_size for r in results)
         return out
@@ -293,8 +290,7 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
         def timed(first, *args, **kwargs):
             t = time.perf_counter()
             try:
-                with gate:
-                    return fn(first, *args, **kwargs)
+                return fn(first, *args, **kwargs)
             finally:
                 out.append((time.perf_counter() - t) * 1e3)
                 if count:  # first: the batch's requests
@@ -342,7 +338,10 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
         lat = server.detect_latency.snapshot()
         seen = during() if during is not None else None
         time.sleep(max(t0 + seconds - 0.95 - time.perf_counter(), 0))
-        busy, wall, idle = device_idle_share(torch, 0.9, gate)
+        # Every engine call of the batcher holds its device_gate, so the
+        # profiler starts and stops between them.
+        busy, wall, idle = device_idle_share(torch, 0.9,
+                                             server.batcher.device_gate)
         if child is not None:
             out = json.loads(child.stdout.readline())
             child.wait(timeout=60)

@@ -170,7 +170,8 @@ class TpuConfig:
     batch_window_ms: float = 3.0
     # Model compute dtype on device.
     dtype: str = "bfloat16"
-    # int8 quantized backbone (not ported yet: the engine raises).
+    # int8 quantized backbone (per-channel int8 weights, calibrated
+    # activation scales; runtime/engine.py, ops/quant.py).
     quantize_int8: bool = False
     # Candidate boxes kept before NMS (top-k across anchors).
     pre_nms_topk: int = 256

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..ops.conv1x1_cuda import k_major
+from ..ops.conv_int8_cuda import pack_weight
 from .yolov8 import (VARIANTS, ModelSpec, _depth, fold_batchnorm, get_spec,
                      init_params, stem_s2d_weights)
 
@@ -419,11 +420,27 @@ def load_model(path: str, variant: str = "yolov8n", num_classes: int = 4,
 
 def params_from_jax(tree: Params) -> Params:
     """The JAX package's parameter tree (NumPy arrays, HWIO kernels) -> the
-    port's parameters (CPU f32 tensors): BN folded; HWIO -> OIHW for
-    `F.conv2d`; a 1x1 kernel as its (Cin, Cout) matrix `w_mm`."""
+    port's parameters (CPU tensors): BN folded; HWIO -> OIHW for
+    `F.conv2d`; a 1x1 kernel as its (Cin, Cout) matrix `w_mm`. An int8 conv
+    block of `ops/quant.py` `quantize_params` ({w_q, w_scale, b} and,
+    calibrated, x_scale) keeps its int8 kernel as (Cout, kh, kw, Cin), the
+    order of an NHWC patch, and its scales and bias in f32."""
+    def f32(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
     def conv(node):
+        b = f32(node["b"])
+        if "w_q" in node:
+            w_q = np.asarray(node["w_q"])
+            if w_q.dtype != np.int8:
+                raise ValueError(f"w_q must be int8, got {w_q.dtype}")
+            out = {"w_q": torch.from_numpy(np.array(w_q.transpose(3, 0, 1, 2),
+                                                    order="C")),
+                   "w_scale": f32(node["w_scale"]), "b": b}
+            if "x_scale" in node:
+                out["x_scale"] = f32(node["x_scale"]).reshape(())
+            return out
         w = np.asarray(node["w"], np.float32)
-        b = torch.from_numpy(np.array(node["b"], np.float32))
         if w.shape[0] == 1 and w.shape[1] == 1:
             return {"w_mm": torch.from_numpy(np.array(w[0, 0])), "b": b}
         return {"w": torch.from_numpy(np.array(w.transpose(3, 2, 0, 1),
@@ -431,7 +448,7 @@ def params_from_jax(tree: Params) -> Params:
 
     def walk(node):
         if isinstance(node, dict):
-            if "w" in node:
+            if "w" in node or "w_q" in node:
                 return conv(node)
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, list):
@@ -439,8 +456,6 @@ def params_from_jax(tree: Params) -> Params:
         raise ValueError(f"unexpected parameter leaf {type(node).__name__}")
 
     flat = flatten(tree)
-    if any("/w_q" in k for k in flat):
-        raise ValueError("int8-quantized parameter trees are not ported yet")
     if any("/bn/" in k for k in flat):
         tree = fold_batchnorm(unflatten(flat))
     return walk(tree)
@@ -458,10 +473,22 @@ def place_params(params: Params, device, dtype: torch.dtype,
     input channels with an f32 zero bias each (the 1x1 kernel takes a bias).
     Every piece is its own contiguous K-major matrix.
     stem_s2d: also place m0's kernel as the k2 s1 kernel of the
-    space-to-depth stem (`w_s2d`, models/yolov8.py `_stem_s2d`)."""
+    space-to-depth stem (`w_s2d`, models/yolov8.py `_stem_s2d`).
+    An int8 block ({w_q, w_scale, b[, x_scale]}) is laid out once as the
+    int8 kernel reads it: `w_q` a (Cout, Kp) int8 matrix, K-major in (ky,
+    kx, cin) order, K zero-padded to the MMA's K step
+    (`ops/conv_int8_cuda.py` `pack_weight`), with its kernel size `k`; the
+    scales and bias f32. It gets no `w_mm` and no split-C2f pieces: its C2f
+    runs the slice form."""
     def conv(node):
         out = {"b": node["b"].to(device=device, dtype=torch.float32)}
-        if "w_mm" in node:
+        if "w_q" in node:
+            out["w_q"] = pack_weight(node["w_q"]).to(device)
+            out["k"] = int(node["w_q"].shape[1])
+            for key in ("w_scale", "x_scale"):
+                if key in node:
+                    out[key] = node[key].to(device=device, dtype=torch.float32)
+        elif "w_mm" in node:
             out["w_mm"] = k_major(node["w_mm"].to(device=device, dtype=dtype))
         else:
             out["w"] = node["w"].to(device=device, dtype=dtype).contiguous(
@@ -484,7 +511,8 @@ def place_params(params: Params, device, dtype: torch.dtype,
         if "b" in node:
             return conv(node)
         out = {k: walk(v) for k, v in node.items()}
-        if c2f_split and "m" in node and "w_mm" in node["cv1"]:
+        if (c2f_split and "m" in node and "w_q" not in node["cv1"]
+                and "w_mm" in node["cv1"]):
             out.update(pieces(node))
         return out
 

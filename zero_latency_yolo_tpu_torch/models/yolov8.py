@@ -12,11 +12,15 @@ functions, names and parameter layout:
   JAX package does; `models/weights.py` `params_from_jax` turns it into the
   device form the forward functions take: OIHW kernels for `F.conv2d`, and a
   (Cin, Cout) matrix for each 1x1 conv.
-- Conv dispatch (`_conv`): a folded k=1 s=1 conv runs as the 1x1 matmul
-  kernel with its bias and SiLU fused (`ops/conv1x1_cuda.py`); every other
-  conv runs `F.conv2d` without bias, then the bias+SiLU kernel
-  (`ops/act_cuda.py`). `plain=True` routes both through their plain PyTorch
-  versions instead (the reference the kernels are checked against).
+- Conv dispatch (`_conv`): an int8 conv block (tpu.quantize_int8,
+  `ops/quant.py`) runs as the int8 conv kernel with the activation
+  quantize, the dequant, bias and SiLU fused (`ops/conv_int8_cuda.py`); a
+  folded k=1 s=1 conv runs as the 1x1 matmul kernel with its bias and SiLU
+  fused (`ops/conv1x1_cuda.py`); every other conv runs `F.conv2d` without
+  bias, then the bias+SiLU kernel (`ops/act_cuda.py`). `plain=True` routes
+  all three through their plain PyTorch versions instead (the reference
+  the kernels are checked against). `conv_fn` replaces `_conv` (same
+  signature): the hook activation calibration records through.
 - In bf16 the kernels add the bias and apply SiLU in f32 registers and round
   once; the JAX package's bf16 serving path does the tail in bf16.
 - The JAX package's serving-layout switches: `c2f="split"` (C2f without the
@@ -43,6 +47,7 @@ import torch.nn.functional as F
 
 from ..ops.act_cuda import bias_silu, bias_silu_plain
 from ..ops.conv1x1_cuda import conv1x1_bias_act, conv1x1_bias_act_plain
+from ..ops.conv_int8_cuda import conv_int8, conv_int8_plain, dynamic_scale
 
 Params = Dict[str, Any]
 
@@ -237,12 +242,23 @@ def fold_batchnorm(params: Params, eps: float = BN_EPS) -> Params:
 # Forward pass. Every conv block `p` is in device form (models/weights.py
 # params_from_jax): {"w": OIHW, "b": (Cout,) f32} or, for a 1x1 conv,
 # {"w_mm": (Cin, Cout), "b": (Cout,) f32}; placed (place_params), w_mm is
-# laid out K-major for the tensor-core 1x1 kernel.
+# laid out K-major for the tensor-core 1x1 kernel. A placed int8 block is
+# {"w_q": (Cout, Kp) int8, "k", "w_scale", "b"[, "x_scale"]}.
 # ---------------------------------------------------------------------------
 
 def _conv(p: Params, x: torch.Tensor, stride: int = 1, act: bool = True,
           plain: bool = False) -> torch.Tensor:
-    """Conv + bias (+ SiLU) over NHWC `x`; SAME padding ((k-1)//2)."""
+    """Conv + bias (+ SiLU) over NHWC `x`; SAME padding ((k-1)//2).
+
+    An int8 block: per-tensor activation scale (the calibrated `x_scale`,
+    else max(|x|) / 127 computed on the device), int8 conv with int32
+    accumulation, y * (x_scale * w_scale) + b and SiLU in f32, then x's
+    type (the JAX package's int8 tail is f32 too)."""
+    if "w_q" in p:
+        x_scale = p["x_scale"] if "x_scale" in p else dynamic_scale(x)
+        fn = conv_int8_plain if plain else conv_int8
+        return fn(x, x_scale, p["w_q"], p["w_scale"], p["b"], p["k"], stride,
+                  act)
     if "w_mm" in p:
         if stride != 1:
             raise ValueError("1x1 conv blocks run at stride 1 only")
@@ -276,9 +292,11 @@ def _c2f(p: Params, x: torch.Tensor, shortcut: bool, cv,
     rounding of the partial sums. The pieces are laid out once by
     `models/weights.py` `place_params(c2f_split=True)`, each K-major and
     contiguous (a column slice of a K-major matrix is not, and the
-    tensor-core kernel's TMA needs 16-byte rows). The JAX package falls back
-    to the slice form on unfolded (BN) params; the port folds BN at load,
-    so that case does not arise here."""
+    tensor-core kernel's TMA needs 16-byte rows). int8 blocks (w_q) run the
+    slice form, as the JAX package's do. The JAX package also falls back to
+    it on unfolded (BN) params; the port folds BN at load, so that case
+    does not arise here."""
+    split = split and "w_q" not in p["cv1"]
     if split:
         if "cv1_pieces" not in p:
             raise ValueError("c2f='split' needs the weight pieces that "
@@ -344,6 +362,8 @@ def _stem_s2d(p: Params, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
     pad-1 border zeros), then the bias+SiLU kernel. BN-folded params only,
     refused otherwise as the JAX package refuses them (the port folds BN at
     load, so only a hand-built tree can reach the refusal)."""
+    if "w_q" in p:
+        raise ValueError("s2d stem incompatible with quantized m0")
     if "bn" in p or "b" not in p:
         raise ValueError(
             "stem='s2d' requires BN-folded stem params (w + b, no bn "
@@ -356,15 +376,18 @@ def _stem_s2d(p: Params, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
 
 def apply_backbone(params: Params, x: torch.Tensor, dtype=torch.float32,
                    plain: bool = False, stem: str = "conv",
-                   c2f: str = "slice", dot1x1: bool = False
+                   c2f: str = "slice", dot1x1: bool = False, conv_fn=None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backbone + neck. x: (B, H, W, 3) float in [0,1], or with stem="s2d"
     the space-to-depth form (B, H/2, W/2, 12) of
     ops/preprocess.letterbox_batch_mxu_s2d. Returns (P3, P4, P5). c2f:
     "slice" or "split" (see _c2f). dot1x1: no effect (see the module
-    docstring)."""
+    docstring). conv_fn: a replacement for _conv (same signature), the
+    hook `ops/quant.py` calibration records through."""
+    conv = conv_fn or _conv
+
     def cv(p, t, stride=1, act=True):
-        return _conv(p, t, stride=stride, act=act, plain=plain)
+        return conv(p, t, stride=stride, act=act, plain=plain)
 
     def c2(p, t, shortcut):
         return _c2f(p, t, shortcut, cv, split=(c2f == "split"), plain=plain)
@@ -399,20 +422,22 @@ def apply_backbone(params: Params, x: torch.Tensor, dtype=torch.float32,
 
 def forward_raw(params: Params, spec: ModelSpec, x: torch.Tensor,
                 dtype=torch.float32, plain: bool = False, stem: str = "conv",
-                c2f: str = "slice", dot1x1: bool = False
+                c2f: str = "slice", dot1x1: bool = False, conv_fn=None
                 ) -> List[torch.Tensor]:
-    """Full forward. Returns per-level (B, Hi, Wi, 4*reg_max + nc) maps in f32."""
+    """Full forward. Returns per-level (B, Hi, Wi, 4*reg_max + nc) maps in
+    f32. conv_fn: optional _conv replacement (see apply_backbone)."""
+    conv = conv_fn or _conv
     feats = apply_backbone(params, x, dtype=dtype, plain=plain, stem=stem,
-                           c2f=c2f, dot1x1=dot1x1)
+                           c2f=c2f, dot1x1=dot1x1, conv_fn=conv_fn)
     det = params["m22"]
     outs = []
     for level, f in enumerate(feats):
         box = f
         for i, bp in enumerate(det["cv2"][level]):
-            box = _conv(bp, box, act=(i < 2), plain=plain)
+            box = conv(bp, box, act=(i < 2), plain=plain)
         cls = f
         for i, cp in enumerate(det["cv3"][level]):
-            cls = _conv(cp, cls, act=(i < 2), plain=plain)
+            cls = conv(cp, cls, act=(i < 2), plain=plain)
         outs.append(torch.cat([box.float(), cls.float()], dim=-1))
     return outs
 

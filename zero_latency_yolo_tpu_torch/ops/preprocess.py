@@ -10,13 +10,16 @@ function for each `tpu.preprocess` / `tpu.stem` value:
   (B, S/2, S/2, 12) space-to-depth layout directly;
 - `letterbox_batch` ("letterbox"): the same resize as four gathers per
   output pixel and a bilinear blend;
-- `stretch_batch` ("stretch"): the reference's nearest-neighbor stretch.
+- `stretch_batch` ("stretch"): the reference's nearest-neighbor stretch;
+- `letterbox_batch_rowcol`: the letterbox as separable row and column
+  gathers plus a lerp. No config value selects it (as in the JAX package,
+  whose `tpu.preprocess` enum leaves it out); it is here so that the
+  module is whole.
 
 Frames arrive padded into a fixed (Hbuf, Wbuf) bucket; the true per-frame
 (h, w) are runtime tensors, so one batch shape serves every client
 resolution within a bucket. The JAX package computes all of these in XLA;
-here they are plain PyTorch. `letterbox_batch_rowcol` of the JAX package is
-reachable from no config value and is not ported.
+here they are plain PyTorch.
 
 The interpolation matrices reproduce `_interp_matrix` exactly (edge
 clipping, the inside mask, FILL = 114/255, round-half-even in
@@ -208,3 +211,43 @@ def stretch_batch(frames: torch.Tensor, heights: torch.Tensor,
     flat = frames.reshape(bsz, hbuf * wbuf, 3)
     out = torch.gather(flat, 1, idx.expand(-1, -1, 3))
     return out.reshape(bsz, size, size, 3).to(torch.float32) / 255.0
+
+
+def letterbox_batch_rowcol(frames: torch.Tensor, heights: torch.Tensor,
+                           widths: torch.Tensor, size: int,
+                           dtype=torch.float32) -> torch.Tensor:
+    """Letterbox a padded uint8 batch (B, Hbuf, Wbuf, 3) -> (B, size, size,
+    3) f32 by separable row and column gathers plus a lerp (the JAX
+    package's `letterbox_batch_rowcol`): bilinear taps exactly two source
+    rows per output row, so the resample is S row gathers, a lerp, S column
+    gathers and a lerp, in `dtype`, then / 255 in f32; FILL outside the
+    frame's true (h, w). Equal to `letterbox_batch` in f32."""
+    bsz = frames.shape[0]
+    hf = heights.to(torch.float32)[:, None]
+    wf = widths.to(torch.float32)[:, None]
+    scale, pad_x, pad_y = letterbox_params(hf, wf, size)
+    o = torch.arange(size, dtype=torch.float32, device=frames.device)[None]
+    sy = (o - pad_y + 0.5) / scale - 0.5                    # (B, S)
+    sx = (o - pad_x + 0.5) / scale - 0.5
+
+    def taps(s, valid):
+        s0 = torch.floor(s)
+        frac = (s - s0).to(dtype)
+        i0 = torch.minimum(torch.clamp(s0, min=0), valid - 1).to(torch.int64)
+        i1 = torch.minimum(torch.clamp(s0 + 1, min=0), valid - 1).to(torch.int64)
+        return i0, i1, frac
+
+    y0, y1, fy = taps(sy, hf)
+    b = torch.arange(bsz, device=frames.device)[:, None]
+    fy = fy[:, :, None, None]
+    rows = (frames[b, y0].to(dtype) * (1 - fy)
+            + frames[b, y1].to(dtype) * fy)                # (B, S, Wbuf, 3)
+    x0, x1, fx = taps(sx, wf)
+    fx = fx[:, None, :, None]
+    out = (torch.take_along_dim(rows, x0[:, None, :, None], dim=2) * (1 - fx)
+           + torch.take_along_dim(rows, x1[:, None, :, None], dim=2) * fx)
+    out = out.to(torch.float32) / 255.0
+    inside = (((sy >= -0.5) & (sy <= hf - 0.5))[:, :, None]
+              & ((sx >= -0.5) & (sx <= wf - 0.5))[:, None, :])
+    return torch.where(inside[..., None], out,
+                       torch.full((), FILL, device=out.device))

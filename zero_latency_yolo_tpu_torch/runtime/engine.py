@@ -37,9 +37,14 @@ tpu.preprocess, tpu.select, tpu.c2f and tpu.stem value is served; the
 synthetic step (tpu.synthetic_step_ms / synthetic_step_profile(s)) replaces
 the device with a host-only fake lane whose step times come from the config.
 
-Refused at construction: int8 (tpu.quantize_int8) and serving meshes
-(tpu.mesh_data * tpu.mesh_model > 1). The TPU kernel switches tpu.nms /
-tpu.act / tpu.conv1x1 and tpu.dot1x1 have no effect here.
+tpu.quantize_int8 serves the int8 backbone (`ops/quant.py`): per-channel
+int8 weights and static activation scales calibrated on synthetic
+letterboxed samples at construction and at every hot reload, applied on the
+dispatch thread (`_quantize_and_calibrate`); the int8 convs run the int8
+conv kernel (`ops/conv_int8_cuda.py`), the stem and the head stay in the
+engine's dtype. Refused at construction: serving meshes (tpu.mesh_data *
+tpu.mesh_model > 1). The TPU kernel switches tpu.nms / tpu.act /
+tpu.conv1x1 and tpu.dot1x1 have no effect here.
 
 `create_engine` picks the engine from `config.inference_engine` under the
 JAX package's registry names: "jax" and "onnx" select `InferenceEngine`,
@@ -49,6 +54,7 @@ JAX package's registry names: "jax" and "onnx" select `InferenceEngine`,
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import random
 import threading
@@ -66,7 +72,9 @@ from ..models.yolov8 import (ModelSpec, forward_decoded,
                              forward_decoded_levels, get_spec)
 from ..ops import nms as nms_ops
 from ..ops import preprocess as pre_ops
+from ..ops._build import KernelError
 from ..ops.preprocess import letterbox_params
+from ..ops.quant import calibrate_activations, quantize_params
 from ..protocol import Detection
 from ..utils.logging import get_logger
 from ..utils.stats import Counter, RollingStats
@@ -245,7 +253,6 @@ def _check_supported(config: ServerConfig) -> None:
     """Refuse what the port does not implement yet, at construction."""
     tpu = config.tpu
     refused = {
-        "tpu.quantize_int8": bool(tpu.quantize_int8),
         "tpu.mesh_data/mesh_model > 1": int(tpu.mesh_data) * int(tpu.mesh_model) > 1,
     }
     bad = [name for name, hit in refused.items() if hit]
@@ -373,8 +380,8 @@ class InferenceEngine:
         # another like the real device lane.
         self._synthetic_last_ready = 0.0
         # Simulation never touches the device.
-        self._params = None if self.simulation else self._place(
-            params_from_jax(params))
+        self._params = None if self.simulation else self._device_params(
+            self._host_params(params))
         self._class_weights = self._class_weight_tensor()
         # A hot reload staged by maybe_reload (host tensors, and the file's
         # geometry when leaving simulation), applied by the dispatch thread.
@@ -423,6 +430,47 @@ class InferenceEngine:
                     for b in self.batch_buckets for s in self.serve_sizes)
         return place_params(params, self.device, self.dtype, c2f_split=split,
                             stem_s2d=self.config.tpu.stem == "s2d")
+
+    def _host_params(self, tree):
+        """What a loaded NumPy tree is staged as (any thread, host work
+        only): its device form, or with tpu.quantize_int8 the tree itself,
+        which the dispatch thread quantizes and calibrates
+        (_device_params), as the JAX engine does."""
+        return tree if self.config.tpu.quantize_int8 else params_from_jax(tree)
+
+    def _device_params(self, host):
+        """Dispatch thread only: the placed params of a staged host form."""
+        if self.config.tpu.quantize_int8:
+            return self._quantize_and_calibrate(host)
+        return self._place(host)
+
+    def _quantize_and_calibrate(self, tree):
+        """int8 backbone: per-channel weight quant, placed, then static
+        activation scales calibrated on synthetic letterboxed samples (the
+        JAX engine's sample: default_rng(0), one uniform frame and one
+        letterbox-gray frame at the model size) in the engine's dtype. A
+        calibration that fails leaves dynamic quant, as in the JAX engine,
+        except where a kernel failed to build or launch, or the device
+        faulted: that raises, since the step would fail too."""
+        placed = self._place(params_from_jax(quantize_params(tree)))
+        rng = np.random.default_rng(0)
+        sample = (rng.uniform(0.0, 1.0, (2, self.model_size, self.model_size, 3))
+                  .astype(np.float32))
+        sample[1] = 114.0 / 255.0  # letterbox-gray frame
+        precision = (full_f32_precision if self.dtype == torch.float32
+                     else contextlib.nullcontext)
+        try:
+            with precision():
+                n = calibrate_activations(placed, self.spec, sample,
+                                          dtype=self.dtype)
+            log.info("int8 calibration: %d convs got static scales", n)
+        except KernelError:
+            raise
+        except Exception:  # noqa: BLE001 — fall back to dynamic quant
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # a device fault raises
+            log.exception("activation calibration failed; dynamic quant")
+        return placed
 
     # ---------------------------------------------------------------- step
     def _build_step(self, batch: int, size: Optional[int] = None,
@@ -696,7 +744,7 @@ class InferenceEngine:
                       self.spec.variant, self.spec.num_classes)
             self._failed_hash = new_hash
             return False
-        staged = params_from_jax(params)
+        staged = self._host_params(params)
         with self._params_lock:
             # Leaving simulation adopts the file's geometry.
             self._staged = (staged, spec if self.simulation else None)
@@ -718,7 +766,7 @@ class InferenceEngine:
                 self.spec = spec
                 self._step_cache.clear()
             self._class_weights = self._class_weight_tensor()
-            self._params = self._place(params)
+            self._params = self._device_params(params)
             log.info("hot-reload applied on the dispatch thread")
         return self._params
 
@@ -1236,6 +1284,13 @@ class SimulationEngine(InferenceEngine):
     and places nothing on the device; for protocol and load tests."""
 
     _always_simulate = True
+
+    def __init__(self, config: ServerConfig,
+                 params: Optional[Dict[str, Any]] = None,
+                 device: str = "cuda") -> None:
+        cfg = dataclasses.replace(config)
+        cfg.tpu = dataclasses.replace(config.tpu, quantize_int8=False)
+        super().__init__(cfg, params=params, device=device)
 
     def maybe_reload(self) -> bool:  # a model appearing must not flip modes
         return False

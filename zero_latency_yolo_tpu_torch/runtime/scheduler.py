@@ -24,7 +24,12 @@ with a single coherent batcher:
 - the batcher thread is the ONLY thread touching the device: completion
   runs inline after the NEXT dispatch (pipelining via async D2H copies); a
   single device lane keeps the engine's host state (staging free-lists,
-  hot-reload swap) single-threaded.
+  hot-reload swap) single-threaded;
+- every engine call of the batcher (dispatch, readiness query, completion)
+  holds `device_gate`, so that a profiler capture (`utils/profiling.py`,
+  the server's /profilez) starts and stops only between them: stopping
+  torch.profiler while a thread is inside an operator can crash the
+  process.
 """
 
 from __future__ import annotations
@@ -53,6 +58,9 @@ class ContinuousBatcher:
                  max_inflight: int = 2) -> None:
         self.engine = engine
         self.on_result = on_result
+        # Held around every engine call of the batcher thread; a profiler
+        # start or stop takes it (utils/profiling.capture).
+        self.device_gate = threading.RLock()
         # Clamp to the engine's OWN batch buckets: the engine may have
         # filtered the configured buckets (e.g. to multiples of the serving
         # mesh's data axis), and collecting more requests than the largest
@@ -225,7 +233,7 @@ class ContinuousBatcher:
                     # for a whole step and inflate the measured host path.
                     n_ready = 0
                     for p in self._inflight:
-                        if self._ready(p):
+                        if self._ready_gated(p):
                             n_ready += 1
                         else:
                             break
@@ -247,7 +255,7 @@ class ContinuousBatcher:
             # readiness polling), so the single lane adds no window of
             # completion latency.
             while True:
-                if self._inflight and self._ready(self._inflight[0]):
+                if self._inflight and self._ready_gated(self._inflight[0]):
                     self._complete_oldest()
                 remaining = deadline - time.perf_counter()
                 # Completion readiness granularity: 2 ms polling for real
@@ -271,7 +279,8 @@ class ContinuousBatcher:
                 # watchdog is blind to dispatch-side wedges.
                 self._dispatching_since = time.perf_counter()
                 try:
-                    self._inflight.extend(self._dispatch(batch))
+                    with self.device_gate:
+                        self._inflight.extend(self._dispatch(batch))
                 except Exception:  # noqa: BLE001
                     self.engine.error_count.inc()
                     log.exception("batch dispatch failed (batch=%d)", len(batch))
@@ -289,6 +298,10 @@ class ContinuousBatcher:
             if len(self._inflight) >= self.max_inflight:
                 keep = 1 if self.max_inflight > 1 else 0
                 self._complete_n(len(self._inflight) - keep)
+
+    def _ready_gated(self, pending) -> bool:
+        with self.device_gate:
+            return self._ready(pending)
 
     @staticmethod
     def _ready(pending) -> bool:
@@ -312,13 +325,15 @@ class ContinuousBatcher:
             # up as device_stall_s growth instead of silent blocking.
             self._completing_since = time.perf_counter()
         try:
-            all_results = self.engine.complete_many(batch)
+            with self.device_gate:
+                all_results = self.engine.complete_many(batch)
         except Exception:  # noqa: BLE001
             self.engine.error_count.inc()
             # The dropped batches' staging buffers never reached _convert;
             # recycle them here or every failed completion leaks one
             # full-size host buffer (unbounded under a hung device).
-            self.engine.recycle_staging(batch)
+            with self.device_gate:
+                self.engine.recycle_staging(batch)
             log.exception("batch completion failed")
             return
         finally:

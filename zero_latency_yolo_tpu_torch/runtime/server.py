@@ -26,7 +26,10 @@ default-unreliable send, network_server.cpp:227-243). With
 updates are dropped, as the JAX server does without its cache.
 
 A copy of the JAX package's `runtime/server.py`. JPEG payloads need `cv2`
-(runtime/frames.py). No profiler is wired to /profilez yet.
+(runtime/frames.py). POST /profilez captures a torch.profiler trace of the
+live process into logs/torch-trace/ (utils/profiling.py), starting and
+stopping the profiler between the batcher's engine calls
+(`ContinuousBatcher.device_gate`).
 
 A minimal /statusz HTTP endpoint on web_port replaces the reference
 dashboard's log-file scraping (web/server.js:198-248).
@@ -240,6 +243,10 @@ class DetectionServer:
         # reconstructed from log scraping like the reference's web plane
         # (web/server.js:198-248).
         self._status_history: deque = deque(maxlen=120)
+        from ..utils import profiling as _profiling
+        _trace_dir = _os.path.join(
+            _os.path.dirname(config.logging.log_file) or "logs", "torch-trace")
+        gate = self.batcher.device_gate
         self.management = ManagementApi(
             status_fn=self.status,
             history_fn=lambda: list(self._status_history),
@@ -247,8 +254,12 @@ class DetectionServer:
             models_dir=_os.path.dirname(config.model_path) or "models",
             logs_dir=_os.path.dirname(config.logging.log_file) or "logs",
             active_model=_os.path.basename(config.model_path),
-            # No profiler wired yet: /profilez answers 404.
-            profile_fn=None,
+            # On-demand capture of the live process (POST /profilez): the
+            # capture sleeps on the management worker thread while the
+            # batcher keeps serving; the profiler starts and stops between
+            # the batcher's engine calls (the gate every one of them holds).
+            profile_fn=lambda s: _profiling.capture(s, _trace_dir, gate=gate),
+            profile_status_fn=_profiling.capture_status,
             auth_token=config.network.web_auth_token)
         # Frame decode offload (config worker_threads, reference
         # server/config.h:316): JPEG/ROI decode runs off the packet thread.
@@ -401,14 +412,19 @@ class DetectionServer:
             except OSError:
                 log.warning("statusz port %d busy; endpoint disabled",
                             self.config.network.web_port)
+        def gated(fn, *args):
+            # The device work of warmup holds the batcher's gate too: the
+            # management plane is up, so a /profilez capture may start now.
+            with self.batcher.device_gate:
+                return fn(*args)
         if warmup and not self.engine.simulation:
-            await asyncio.to_thread(self.engine.warmup,
+            await asyncio.to_thread(gated, self.engine.warmup,
                                     None, None, self.device_cache,
                                     self.config.tpu.max_inflight)
         elif warmup and self.device_cache is not None:
             # Simulation mode skips engine warmup, but the cache's writes
             # are real device work regardless of engine mode.
-            await asyncio.to_thread(self.device_cache.warm)
+            await asyncio.to_thread(gated, self.device_cache.warm)
         applied = {}
         if self.config.tpu.gc_tune:
             # Post-warmup: every compiled program / pool / session table

@@ -1,7 +1,9 @@
 """Management-plane HTTP API (replaces the reference's Node dashboard backend).
 
-A copy of the JAX package's `runtime/web.py`. The PyTorch server wires no
-profiler yet (`profile_fn=None`), so `/profilez` answers 404 "profiling not
+A copy of the JAX package's `runtime/web.py`. The PyTorch server wires
+`/profilez` to `utils/profiling.py`: a torch.profiler capture (a Chrome
+trace under logs/torch-trace/) in place of the JAX package's XPlane
+capture; an API built without `profile_fn` answers 404 "profiling not
 wired".
 
 The reference serves a separate Express app (src/web/server.js) whose status
