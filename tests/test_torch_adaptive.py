@@ -18,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_fixtures.cpu_threads  # noqa: E402,F401  (caps torch's CPU threads)
 from zero_latency_yolo_tpu_torch.config import ServerConfig  # noqa: E402
 from zero_latency_yolo_tpu_torch.models.weights import flatten  # noqa: E402
 from zero_latency_yolo_tpu_torch.models.yolov8 import (  # noqa: E402

@@ -18,7 +18,11 @@ engine of the lower rung's model size. The int8 conv kernel at every int8
 conv shape of yolov8n's int8 step at 416: int32 accumulators equal to the
 plain version's and outputs within one ulp, on exact rounding ties, with a
 dynamic device scale and without SiLU; a failed build or launch raises;
-the int8 step's dispatch returns before the device is done.
+the int8 step's dispatch returns before the device is done. Training on
+the card: bf16 and f32 steps (finite, the loss falls, f32 equal to the CPU
+step), the gradient on every leaf (BN mean and var included), evaluate
+with the kernels against the plain versions, and a checkpoint round trip
+(on the card and onto the CPU, the resumed step bit-equal).
 
 Needs an NVIDIA GPU and nvcc: marked `cuda` and skipped elsewhere. This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -761,3 +765,141 @@ def test_adaptive_downshift_on_the_card(dev):
     assert eng.update_adaptive_slo(1e4)
     drive(lambda: eng._serve_size == 64)
     assert eng._serve_size == 64 and eng.size_upshifts == 1
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+# ---------------------------------------------------------------------------
+
+def _train_state(dev, ema=False, schedule="const"):
+    from zero_latency_yolo_tpu_torch.models.weights import train_params_from_jax
+    from zero_latency_yolo_tpu_torch.models.yolov8 import get_spec, init_params
+    from zero_latency_yolo_tpu_torch.train.optim import make_optimizer
+    from zero_latency_yolo_tpu_torch.train.step import init_train_state
+    spec = get_spec("yolov8p", 4)
+    tx = make_optimizer(1e-3, schedule, steps=6, warmup_steps=1)
+    state = init_train_state(train_params_from_jax(
+        init_params(0, spec, folded=False), device=dev), tx, ema=ema)
+    return spec, tx, state
+
+
+def _train_batches(n, size=64, batch=4):
+    from zero_latency_yolo_tpu_torch.train.loop import synthetic_batches
+    gen = synthetic_batches(batch, size, seed=0)
+    return [next(gen) for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_train_step_on_the_card(dev, dtype):
+    """Five steps of one batch on the card: every loss finite and falling,
+    every leaf changed and finite; in f32 the first loss equals the same
+    step's on the CPU within 1e-5 relative (full f32 on the card)."""
+    from zero_latency_yolo_tpu_torch.models.weights import tree_leaves
+    from zero_latency_yolo_tpu_torch.train.step import make_train_step
+    spec, tx, state = _train_state(dev, ema=True)
+    before = [p.detach().clone() for p in tree_leaves(state.params)]
+    step = make_train_step(spec, tx, (64, 64), dtype=dtype)
+    images, targets = _train_batches(1)[0]
+    losses = [float(step(state, images, targets)[1]["loss"]) for _ in range(5)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    for p, b in zip(tree_leaves(state.params), before):
+        assert p.device.type == "cuda" and bool(torch.isfinite(p).all())
+        assert not torch.equal(p.detach(), b)
+    if dtype == torch.float32:
+        _, cpu_tx, cpu_state = _train_state("cpu")
+        cpu_step = make_train_step(spec, cpu_tx, (64, 64),
+                                   dtype=torch.float32)
+        want = float(cpu_step(cpu_state, images, targets)[1]["loss"])
+        assert abs(losses[0] - want) <= 1e-5 * abs(want)
+
+
+def test_train_gradient_reaches_every_leaf_on_the_card(dev):
+    """The loss's gradient on the card is nonzero and finite on every leaf
+    of the training form, BN mean and var included."""
+    from zero_latency_yolo_tpu_torch.models.weights import (flatten,
+                                                            train_params_to_numpy,
+                                                            tree_leaves)
+    from zero_latency_yolo_tpu_torch.models.yolov8 import forward_train_raw
+    from zero_latency_yolo_tpu_torch.train.loss import detection_loss
+    spec, _, state = _train_state(dev)
+    images, targets = _train_batches(1)[0]
+    leaves = tree_leaves(state.params)
+    outs = forward_train_raw(state.params, spec,
+                             torch.from_numpy(images).to(dev))
+    loss, _ = detection_loss(spec, outs, torch.from_numpy(targets).to(dev),
+                             (64, 64))
+    grads = torch.autograd.grad(loss, leaves)
+    names = sorted(flatten(train_params_to_numpy(state.params)))
+    assert sum(n.endswith("/bn/mean") for n in names) > 0
+    assert sum(n.endswith("/bn/var") for n in names) > 0
+    for g in grads:
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
+
+
+def test_evaluate_with_kernels_on_the_card(dev):
+    """evaluate of the deployed weights on 16 images at 416 with the kernels
+    against their plain versions: in f32 the same numbers (within
+    chip_smoke.EVAL_TOL), in bf16 mAP and mAP50-95 within EVAL_BF16_TOL (a
+    kernel's bf16 output may round one step away from its plain version's,
+    which moves a detection on a threshold); every kernel launched, the bf16
+    1x1 convs on the tensor cores."""
+    from pathlib import Path
+    from chip_smoke import EVAL_BF16_TOL, EVAL_TOL
+    from zero_latency_yolo_tpu_torch.models.weights import load_params
+    from zero_latency_yolo_tpu_torch.models.yolov8 import get_spec
+    from zero_latency_yolo_tpu_torch.train.eval import evaluate
+    from zero_latency_yolo_tpu_torch.train.loop import synthetic_batches
+    root = Path(__file__).resolve().parent.parent
+    tree = load_params(str(root / "artifacts" / "yolov8n_trained_416.npz"))
+    spec = get_spec("yolov8n", 4)
+    images, targets = next(synthetic_batches(16, 416, seed=416))
+    for dtype, tol in ((torch.bfloat16, EVAL_BF16_TOL),
+                       (torch.float32, EVAL_TOL)):
+        nms_cuda.launches = act_cuda.launches = conv1x1_cuda.launches = 0
+        conv1x1_cuda.launches_by_route = {r: 0 for r in conv1x1_cuda.ROUTES}
+        got = evaluate(tree, spec, images, targets, dtype=dtype, device="cuda")
+        assert nms_cuda.launches > 0 and act_cuda.launches > 0
+        assert conv1x1_cuda.launches > 0
+        if dtype == torch.bfloat16:
+            assert (conv1x1_cuda.launches_by_route["wgmma"]
+                    == conv1x1_cuda.launches)
+        want = evaluate(tree, spec, images, targets, dtype=dtype,
+                        device="cuda", plain=True)
+        assert got["mAP"] > 0.5 and got["num_gt"] == want["num_gt"]
+        for k in ("mAP", "mAP50_95"):
+            assert abs(got[k] - want[k]) <= tol, (dtype, k, got, want)
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """A card state after 2 steps saved and restored, on the card and on
+    the CPU, leaf for leaf equal; the restored card state's next step
+    equals the uninterrupted run's, bit for bit, with cuDNN deterministic."""
+    from chip_smoke import deterministic
+    from zero_latency_yolo_tpu_torch.models.weights import tree_leaves
+    from zero_latency_yolo_tpu_torch.train.checkpoint import CheckpointManager
+    from zero_latency_yolo_tpu_torch.train.step import make_train_step
+    batches = _train_batches(3)
+    with deterministic(torch):
+        spec, tx, state = _train_state(dev, ema=True, schedule="cosine")
+        step = make_train_step(spec, tx, (64, 64))
+        for images, targets in batches[:2]:
+            step(state, images, targets)
+        mgr = CheckpointManager(str(tmp_path))
+        mgr.save(state, tx)
+        _, tx2, fresh = _train_state(dev, ema=True, schedule="cosine")
+        back = mgr.restore(fresh, tx2)
+        _, tx3, cpu_fresh = _train_state("cpu", ema=True, schedule="cosine")
+        on_cpu = mgr.restore(cpu_fresh, tx3)
+        for a, b, c in zip(tree_leaves(state.params), tree_leaves(back.params),
+                           tree_leaves(on_cpu.params)):
+            assert b.device.type == "cuda" and c.device.type == "cpu"
+            assert torch.equal(a.detach(), b.detach())
+            assert torch.equal(a.detach().cpu(), c.detach())
+        for x, y in zip(tx.state_leaves(state.opt_state),
+                        tx3.state_leaves(on_cpu.opt_state)):
+            assert np.array_equal(x, y)
+        step(state, *batches[2])
+        make_train_step(spec, tx2, (64, 64))(back, *batches[2])
+        for a, b in zip(tree_leaves(state.params) + tree_leaves(state.ema_params),
+                        tree_leaves(back.params) + tree_leaves(back.ema_params)):
+            assert torch.equal(a.detach(), b.detach())

@@ -21,6 +21,7 @@ from zero_latency_yolo_tpu_torch.runtime.engine import (
     ENGINE_REGISTRY, InferenceEngine, InferenceRequest, SimulationEngine,
     create_engine,
 )
+import torch_fixtures.cpu_threads  # noqa: E402,F401  (caps torch's CPU threads)
 
 
 def _cfg(model_path="/nonexistent.npz", **top):

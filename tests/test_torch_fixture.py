@@ -8,9 +8,14 @@ records. The int8 fixture jax_int8_f32_step_416.npz (yolov8n at 416 with
 tpu.quantize_int8) holds the port's plain int8 step to the JAX int8 step
 run op by op, and, with the jitted JAX run's calibration carried across,
 to the jitted step within the JAX package's own spread between the two
-(`int8_fixture_gate`, the card's gate)."""
+(`int8_fixture_gate`, the card's gate). The train fixture
+jax_train_f32_n416.npz holds the port's f32 train steps at 416 (yolov8n,
+batch 2, 3 steps) to the JAX package's by losses and per-leaf norms and
+probes (`train_fixture_gate`), and the port's f32 evaluate of the deployed
+weights to the JAX package's (`eval_fixture_gate`): the card's gates."""
 
 import importlib.util
+import json
 from pathlib import Path
 
 import numpy as np
@@ -18,6 +23,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_fixtures.cpu_threads  # noqa: E402,F401  (caps torch's CPU threads)
 import chip_smoke  # noqa: E402
 from zero_latency_yolo_tpu_torch.config import ServerConfig  # noqa: E402
 from zero_latency_yolo_tpu_torch.runtime import engine as pt_engine  # noqa: E402
@@ -222,3 +228,63 @@ def test_plain_int8_step_with_the_jax_scales_within_the_jax_spread():
               f"{gate['odd_jax_eager']}); 1e-3 gate {gate['strict']}")
         assert gate["ok"], (name, gate)
         assert sum(gate["odd"]) <= sum(gate["odd_jax_eager"]), (name, gate)
+
+
+def _fixture_train():
+    return np.load(chip_smoke.FIXTURE_TRAIN)
+
+
+def test_train_fixture_records_what_made_it():
+    """The train fixture's recipe is make_jax_fixture.TRAIN, its leaves are
+    the port's training form's, in tree_leaves order, and it holds one norm
+    and one probe a leaf for each tree, one loss a step."""
+    from zero_latency_yolo_tpu_torch.models.weights import tree_leaves
+    from zero_latency_yolo_tpu_torch.models.yolov8 import get_spec, init_params
+    fx = _fixture_train()
+    t = json.loads(str(fx["config"]))
+    assert t == make_jax_fixture.TRAIN
+    tree = init_params(t["init_seed"], get_spec(t["variant"], t["classes"]),
+                       folded=False)
+    names = make_jax_fixture.leaf_paths(tree)
+    assert [str(n) for n in fx["leaf_names"]] == names
+    assert len(tree_leaves(tree)) == len(names)
+    for k in ("loss", "box", "cls", "dfl"):
+        assert fx[k].shape == (t["steps"],) and np.isfinite(fx[k]).all()
+    for name in ("grad1", "params3", "ema3"):
+        assert fx[f"{name}_norm"].shape == fx[f"{name}_dot"].shape == \
+            (len(names),)
+    keys = [str(k) for k in fx["eval_keys"]]
+    assert "mAP" in keys and "mAP50_95" in keys
+    assert dict(zip(keys, fx["eval_values"]))["mAP"] > 0.5
+
+
+def test_port_train_steps_match_the_jax_train_fixture():
+    """The port's f32 steps on the CPU at the fixture's size (yolov8n at
+    416, batch 2, 3 steps) against the JAX package's, with the card's gate
+    (chip_smoke.train_fixture_gate): losses, every leaf's norm and probe
+    within TRAIN_TOL of their scales; on the CPU within a tenth of that
+    (TRAIN_TOL was set from this comparison)."""
+    fx = _fixture_train()
+    run = chip_smoke.train_fixture_run(torch, "cpu", fx)
+    gate = chip_smoke.train_fixture_gate(run, fx)
+    print(gate["worst"])
+    assert gate["ok"], gate["worst"]
+    for k, v in gate["worst"].items():
+        assert v <= chip_smoke.TRAIN_TOL / 10, (k, v)
+
+
+def test_port_evaluate_matches_the_jax_eval_fixture():
+    """The port's f32 evaluate of the deployed weights (folded, served by
+    the plain kernel versions on the CPU) over the fixture's 32 images at
+    416 equals the JAX package's within chip_smoke.EVAL_TOL."""
+    from zero_latency_yolo_tpu_torch.models.weights import load_params
+    from zero_latency_yolo_tpu_torch.models.yolov8 import get_spec
+    from zero_latency_yolo_tpu_torch.train.eval import evaluate
+    fx = _fixture_train()
+    t = json.loads(str(fx["config"]))
+    images, targets = chip_smoke.eval_images(fx)
+    got = evaluate(load_params(str(chip_smoke.ROOT / t["eval_weights"])),
+                   get_spec(t["variant"], t["classes"]), images, targets,
+                   batch=t["eval_batch"], device="cpu")
+    gate = chip_smoke.eval_fixture_gate(got, fx)
+    assert gate["ok"], (got, gate)

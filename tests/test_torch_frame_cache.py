@@ -20,6 +20,7 @@ import zero_latency_yolo_tpu_torch.ops.roi as pt_roi
 
 torch = pytest.importorskip("torch")
 
+import torch_fixtures.cpu_threads  # noqa: E402,F401  (caps torch's CPU threads)
 
 def synthetic(w, h, seed):
     return np.random.default_rng(seed).integers(0, 256, (h, w, 3), np.uint8)

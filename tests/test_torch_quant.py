@@ -21,6 +21,7 @@ from jax import lax
 
 torch = pytest.importorskip("torch")
 
+import torch_fixtures.cpu_threads  # noqa: E402,F401  (caps torch's CPU threads)
 from zero_latency_yolo_tpu.config import ServerConfig as JaxConfig  # noqa: E402
 from zero_latency_yolo_tpu.models import yolov8 as jy  # noqa: E402
 from zero_latency_yolo_tpu.ops import quant as jq  # noqa: E402

@@ -33,6 +33,7 @@ from zero_latency_yolo_tpu_torch.runtime.server import (
 from zero_latency_yolo_tpu_torch.runtime.simulator import (
     FaultInjector, SimClient, synthetic_frame,
 )
+import torch_fixtures.cpu_threads  # noqa: E402,F401  (caps torch's CPU threads)
 
 REPO = Path(__file__).resolve().parent.parent
 WAIT = 20.0  # seconds a test waits for the server; generous under load

@@ -8,6 +8,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_fixtures.cpu_threads  # noqa: E402,F401  (caps torch's CPU threads)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

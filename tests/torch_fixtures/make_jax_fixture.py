@@ -2,9 +2,10 @@
 """Write the JAX engine's f32 serving steps as fixtures for the PyTorch port,
 beside this file: `jax_f32_step_416.npz` (yolov8n at 416),
 `jax_f32_step_s640.npz` (yolov8s at 640 and at its 512 rung) and
-`jax_int8_f32_step_416.npz` (yolov8n at 416 with tpu.quantize_int8).
+`jax_int8_f32_step_416.npz` (yolov8n at 416 with tpu.quantize_int8), and
+the JAX train step's and evaluator's as `jax_train_f32_n416.npz`.
 
-    JAX_PLATFORMS=cpu python tests/torch_fixtures/make_jax_fixture.py [--only 416|s640|int8]
+    JAX_PLATFORMS=cpu python tests/torch_fixtures/make_jax_fixture.py [--only 416|s640|int8|train]
 
 Runs the JAX package's `InferenceEngine` on the CPU in f32, through the
 configured `letterbox_mxu` preprocess, with `artifacts/yolov8n_trained_416.npz`
@@ -39,6 +40,20 @@ spread of the JAX package's own int8 step between two ways of running the
 same function. A value that one run rounds to int8 up and the other down
 (their f32 inputs a rounding apart) moves every later conv's input and its
 maxima, so the two runs' later scales and their detections differ.
+
+The train fixture records the JAX package's f32 training (`TRAIN`):
+yolov8n at 416, `init_params(PRNGKey(0), folded=False)`, batch 2 of
+`synthetic_batches(2, 416, seed=0)`, 3 steps of the const chain
+(`clip_by_global_norm(10)`, `adamw(1e-3, weight_decay=1e-4)`) with the EMA
+on, center assigner. Whole trees would be 12.6 MB of f32, so it stores, per
+step, the loss and its box, cls and dfl parts, and, for step 1's gradient
+and for the params and the EMA after step 3, each leaf's L2 norm and its
+dot product with a seeded probe (`chip_smoke.leaf_probes`: one standard
+normal array a leaf, in `jax.tree.leaves` order, from
+`default_rng(TRAIN["probe_seed"])`).
+Beside it, the JAX package's `evaluate` in f32 of
+`artifacts/yolov8n_trained_416.npz` over `synthetic_batches(32, 416,
+seed=TRAIN["eval_seed"])`'s first batch (default thresholds, batch 8).
 """
 
 from __future__ import annotations
@@ -73,6 +88,86 @@ TASK_SEED_S640 = 640
 GAME_SEEDS_S640 = tuple(range(20, 24))
 TASK_BUCKET_S640 = (640, 640)
 RUNGS_S640 = (640, 512)
+
+
+OUT_TRAIN = HERE / "jax_train_f32_n416.npz"
+TRAIN = {"variant": "yolov8n", "classes": 4, "size": 416, "batch": 2,
+         "steps": 3, "lr": 1e-3, "ema_decay": 0.9998, "init_seed": 0,
+         "data_seed": 0, "probe_seed": 1234, "eval_images": 32,
+         "eval_seed": 416, "eval_batch": 8,
+         "eval_weights": "artifacts/yolov8n_trained_416.npz"}
+
+
+def leaf_paths(tree, prefix=""):
+    """The leaves' "m0/bn/var" names in `jax.tree.leaves` order (dict keys
+    sorted, lists in order)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k],
+                                                            f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree)
+                for p in leaf_paths(v, f"{prefix}{i}/")]
+    return [prefix[:-1]]
+
+
+def jax_train_fixture() -> dict:
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from zero_latency_yolo_tpu.models import get_spec, init_params
+    from zero_latency_yolo_tpu.models.weights import load_params
+    from zero_latency_yolo_tpu.models.yolov8 import forward_raw
+    from zero_latency_yolo_tpu.train import (detection_loss, init_train_state,
+                                             make_train_step)
+    from zero_latency_yolo_tpu.train.eval import evaluate
+    from zero_latency_yolo_tpu.train.loop import synthetic_batches
+    from chip_smoke import eval_images, leaf_probes, norms_and_dots
+
+    t = TRAIN
+    hw = (t["size"], t["size"])
+    spec = get_spec(t["variant"], t["classes"])
+    tree = init_params(jax.random.PRNGKey(t["init_seed"]), spec,
+                       folded=False, device=False)
+    names = leaf_paths(tree)
+    leaves0 = jax.tree.leaves(tree)
+    assert len(names) == len(leaves0)
+    probes = leaf_probes([a.shape for a in leaves0], t["probe_seed"])
+    gen = synthetic_batches(t["batch"], t["size"], seed=t["data_seed"])
+    batches = [next(gen) for _ in range(t["steps"])]
+
+    def loss_fn(p, images, targets):
+        outs = forward_raw(p, spec, images, dtype=jnp.float32,
+                           accum_f32=False)
+        return detection_loss(spec, outs, targets, hw)[0]
+    params = jax.tree.map(jnp.asarray, tree)
+    grad1 = jax.jit(jax.grad(loss_fn))(params, jnp.asarray(batches[0][0]),
+                                       jnp.asarray(batches[0][1]))
+    tx = optax.chain(optax.clip_by_global_norm(10.0),
+                     optax.adamw(t["lr"], weight_decay=1e-4))
+    state = init_train_state(params, tx, ema=True)
+    step = make_train_step(spec, tx, hw, dtype=jnp.float32,
+                           ema_decay=t["ema_decay"])
+    metrics = {k: [] for k in ("loss", "box", "cls", "dfl")}
+    for images, targets in batches:
+        state, m = step(state, jnp.asarray(images), jnp.asarray(targets))
+        for k in metrics:
+            metrics[k].append(float(m[k]))
+        print(f"train step: loss {metrics['loss'][-1]:.6f}", flush=True)
+    out = {k: np.array(v, np.float64) for k, v in metrics.items()}
+    for name, leaves in (("grad1", jax.tree.leaves(grad1)),
+                         ("params3", jax.tree.leaves(state.params)),
+                         ("ema3", jax.tree.leaves(state.ema_params))):
+        out[f"{name}_norm"], out[f"{name}_dot"] = norms_and_dots(
+            [np.asarray(a) for a in leaves], probes)
+    images, targets = eval_images({"config": json.dumps(t)})
+    ev = evaluate(load_params(str(REPO / t["eval_weights"])), spec, images,
+                  targets, batch=t["eval_batch"], dtype=jnp.float32)
+    print(f"eval: {ev}", flush=True)
+    out.update(
+        leaf_names=np.array(names), config=np.array(json.dumps(t)),
+        eval_keys=np.array(sorted(ev)),
+        eval_values=np.array([float(ev[k]) for k in sorted(ev)], np.float64))
+    return out
 
 
 def frame_sets():
@@ -194,6 +289,10 @@ def main() -> None:
             task_bucket=np.array(TASK_BUCKET))
         print(f"wrote {OUT_INT8.relative_to(REPO)} "
               f"({OUT_INT8.stat().st_size} bytes)")
+    if only in (None, "train"):
+        np.savez_compressed(OUT_TRAIN, **jax_train_fixture())
+        print(f"wrote {OUT_TRAIN.relative_to(REPO)} "
+              f"({OUT_TRAIN.stat().st_size} bytes)")
     if only in (None, "s640"):
         cfg = config_dict(CONFIG_S640, TASK_BUCKET_S640)
         packed = jax_packed(cfg, frame_sets_s640(), RUNGS_S640)

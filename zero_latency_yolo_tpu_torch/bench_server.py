@@ -32,9 +32,11 @@ the host time of each batch's step launch (`engine.dispatch`, or
 cache the time the batcher holds the cache's lock for a batch (the flush of
 the queued writes and the gather: `lock_ms_p50` / `lock_ms_p90`), the
 device's busy time and idle share over the last second of the load
-(torch.profiler), the server socket's granted receive buffer (`rcvbuf`;
-None on the native transport), and the machine's IP and UDP drop counters
-over the load with the loopback MTU (`net`), and the results by the serve
+(torch.profiler), the server socket's granted buffers, its own overflow
+count and the machine's UDP drops since the bind (`socket`, from
+/statusz), each client's receive-socket overflows
+(`client_overflows`), the machine's IP and UDP drop counters over the load
+with the loopback MTU (`net`), and the results by the serve
 size they were served at (`serve_sizes`) with the engine's size switches
 (`size_downshifts`, `size_upshifts`; a config with a tpu.serve_sizes ladder
 and tpu.adaptive_slo_ms steps down under load).
@@ -111,7 +113,9 @@ def http_get(port: int, path: str, method: str = "GET") -> tuple:
 # of it (480 frames/s of 57,600 B). With the batcher's eager step holding
 # the GIL, the event loop that drains the socket can stall for a few
 # hundred ms, and a smaller buffer loses frames in the kernel, which some
-# kernels do not count per socket in /proc/net/udp (PERF.md section 7).
+# kernels count per socket nowhere (PERF.md section 7). The kernel caps the
+# request (8 MiB on the H100's machine); the server asks past the cap when
+# it may and reports what it got (/statusz `transport.rcvbuf`).
 RECV_BUFFER_BYTES = 64 << 20
 
 
@@ -182,6 +186,11 @@ class Clients:
     def results(self) -> list:
         return [len(c.wait_results(0, timeout=0)) for c in self.clients]
 
+    def overflows(self) -> list:
+        """Each client's receive-socket drops (SO_RXQ_OVFL; None where the
+        kernel does not count them): results lost at the client."""
+        return [c.rx_overflows for c in self.clients]
+
     def stop(self) -> None:
         for c in self.clients:
             c.stop()
@@ -205,7 +214,9 @@ def _child(port: int, n: int, fps: float, seconds: float) -> None:
             if now != last:
                 last, still = now, time.perf_counter()
         print(json.dumps({"sent": [s[0] for s in clients.sent],
-                          "results": clients.results()}), flush=True)
+                          "results": clients.results(),
+                          "client_overflows": clients.overflows()}),
+              flush=True)
     finally:
         clients.stop()
 
@@ -215,16 +226,11 @@ def net_counters() -> dict:
     (/proc/net/snmp; empty off Linux) and the loopback MTU: a datagram
     larger than the MTU travels in fragments, and a failed reassembly
     drops it before any socket sees it."""
-    out = {}
+    from zero_latency_yolo_tpu_torch.utils.netstats import snmp_counters
+    keys = ("Ip.ReasmFails", "Ip.InDiscards", "Udp.InErrors",
+            "Udp.RcvbufErrors", "Udp.NoPorts")
+    out = {k: v for k, v in snmp_counters().items() if k in keys}
     try:
-        lines = Path("/proc/net/snmp").read_text().splitlines()
-        for head, vals in zip(lines[::2], lines[1::2]):
-            name, keys = head.split(":")
-            for k, v in zip(keys.split(), vals.split(":")[1].split()):
-                if (name, k) in (("Ip", "ReasmFails"), ("Ip", "InDiscards"),
-                                 ("Udp", "InErrors"), ("Udp", "RcvbufErrors"),
-                                 ("Udp", "NoPorts")):
-                    out[f"{name}.{k}"] = int(v)
         out["lo_mtu"] = int(Path("/sys/class/net/lo/mtu").read_text())
     except (OSError, ValueError):
         pass
@@ -314,11 +320,6 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
         engine.complete_many = counted
         if cache is not None:
             cache.dispatch_with = timing(dispatch_with, lock_ms, False)
-        transport = server._transport
-        sock = (transport.get_extra_info("socket")
-                if hasattr(transport, "get_extra_info") else None)
-        rcvbuf = (sock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
-                  if sock is not None else None)
         net0 = net_counters()
         # The engine may have served before (a server reusing it).
         drops0 = engine.frames_dropped.value
@@ -346,6 +347,7 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
             out = json.loads(child.stdout.readline())
             child.wait(timeout=60)
             sent, results = out["sent"], out["results"]
+            client_overflows = out["client_overflows"]
         else:
             clients.join()
             last, still = None, time.perf_counter()
@@ -358,6 +360,7 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
                     raise RuntimeError("server did not drain")
             sent = [s[0] for s in clients.sent]
             results = clients.results()
+            client_overflows = clients.overflows()
     finally:
         engine.dispatch, engine.dispatch_gathered = dispatch, dispatch_gathered
         engine.complete_many = complete_many
@@ -383,6 +386,13 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
         sent=sent, results=results,
         engine_drops=int(st["engine"]["dropped"]) - drops0,
         kernel_drops=st["transport"]["kernel_drops"] or 0,
+        # The server socket's granted buffers and own overflow count, the
+        # machine's UDP drops since the server's bind (system-wide), and
+        # each client's receive-socket overflows (results lost there).
+        socket={k: st["transport"][k] for k in (
+            "rcvbuf", "sndbuf", "rx_overflows", "rx_overflows_source",
+            "system_udp")},
+        client_overflows=client_overflows,
         bad_packets=st["transport"]["bad_packets"],
         frames_received=st["frames_received"],
         p50_ms=lat["p50_ms"], p99_ms=lat["p99_ms"],
@@ -391,7 +401,7 @@ def run_load(torch, server, clients_in: str = "threads", n: int = 8,
         batch_sizes=dict(sorted(batch_sizes.items())),
         dispatch_ms_p50=d50, dispatch_ms_p90=d90,
         lock_ms_p50=l50, lock_ms_p90=l90,
-        busy_ms=busy, wall_ms=wall, idle_share=idle, rcvbuf=rcvbuf,
+        busy_ms=busy, wall_ms=wall, idle_share=idle,
         serve_sizes=dict(sorted(served_at.items())),
         size_downshifts=int(st["engine"]["size_downshifts"]),
         size_upshifts=int(st["engine"]["size_upshifts"]),

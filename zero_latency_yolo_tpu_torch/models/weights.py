@@ -79,6 +79,12 @@ def unflatten(flat: Dict[str, np.ndarray]) -> Params:
     return listify(root)
 
 
+def save_params(params: Params, path: str) -> None:
+    """Write a tree (NumPy arrays or tensors, HWIO) as a native `.npz`."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **flatten(train_params_to_numpy(params)))
+
+
 def load_params(path: str) -> Params:
     """NumPy tree (HWIO) from a native `.npz` file."""
     with np.load(path) as z:
@@ -135,7 +141,7 @@ def from_ultralytics_state_dict(sd: Dict[str, np.ndarray]) -> Params:
         if mapped[-1] == "w" and arr.ndim == 4:
             arr = _torch_to_hwio(arr)
         flat[f"m{parts[1]}/" + "/".join(mapped)] = arr
-    return fold_batchnorm(unflatten(flat))
+    return fold_batchnorm(_bn_arrays_to_tree(unflatten(flat)))
 
 
 def _map_ultra_path(rest: List[str]) -> Optional[List[str]]:
@@ -169,6 +175,10 @@ def _map_ultra_path(rest: List[str]) -> Optional[List[str]]:
         out.append(tok)
         i += 1
     return None
+
+
+def _bn_arrays_to_tree(params: Params) -> Params:
+    return params  # bn subdicts already nested by unflatten
 
 
 def load_torch_checkpoint(path: str) -> Params:
@@ -412,6 +422,51 @@ def load_model(path: str, variant: str = "yolov8n", num_classes: int = 4,
             "model %s not loadable (%s: %s) — simulation mode",
             path, type(e).__name__, e)
         return init_params(seed, spec, folded=True), spec, True
+
+
+# ---------------------------------------------------------------------------
+# Training form: the JAX package's tree, key for key, as f32 leaf tensors
+# ---------------------------------------------------------------------------
+
+def tree_map(fn, tree: Params) -> Params:
+    """`fn` over every leaf of a dict/list tree; the structure is kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree: Params) -> List[Any]:
+    """The leaves in `jax.tree.flatten`'s order: dict keys sorted, lists in
+    order. The optimizer's moments and `train/checkpoint.py`'s opt.npz
+    follow it, so the state's leaves line up with optax's."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def train_params_from_jax(tree: Params, device="cpu") -> Params:
+    """The JAX package's tree (NumPy, HWIO; unfolded {w, bn: {gamma, beta,
+    mean, var}} or folded {w, b} blocks) as f32 leaf tensors on `device`,
+    with its keys and layouts unchanged: `flatten` of the result gives the
+    JAX package's keys, so checkpoints and `save_params` files of either
+    package load in the other. The training forward
+    (`models/yolov8.py` `forward_train_raw`) runs this form; eval folds it
+    through `params_from_jax`."""
+    return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32),
+                                           device=device), tree)
+
+
+def train_params_to_numpy(tree: Params) -> Params:
+    """The way back: every leaf (tensor or array) as a NumPy f32 array."""
+    def leaf(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().to("cpu", torch.float32).numpy()
+        return np.asarray(a)
+    return tree_map(leaf, tree)
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,11 @@ functions, names and parameter layout:
   signature): the hook activation calibration records through.
 - In bf16 the kernels add the bias and apply SiLU in f32 registers and round
   once; the JAX package's bf16 serving path does the tail in bf16.
+- Training (`forward_train_raw`) runs the JAX package's training branch on
+  the unfolded tree in its JAX layout (`models/weights.py`
+  `train_params_from_jax`): `F.conv2d` in the compute dtype and an f32 tail
+  of bias, BN with its running statistics and SiLU, differentiable end to
+  end; no kernel of this package has a backward.
 - The JAX package's serving-layout switches: `c2f="split"` (C2f without the
   channel slice and concat, over weight pieces `place_params` lays out once),
   `stem="s2d"` (the stem as a k2 s1 conv over the space-to-depth letterbox)
@@ -438,6 +443,131 @@ def forward_raw(params: Params, spec: ModelSpec, x: torch.Tensor,
         cls = f
         for i, cp in enumerate(det["cv3"][level]):
             cls = conv(cp, cls, act=(i < 2), plain=plain)
+        outs.append(torch.cat([box.float(), cls.float()], dim=-1))
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# Training forward: the JAX package's `accum_f32=False` branch of `_conv`
+# (`models/yolov8.py:336-354` there), differentiable. Its params are the
+# training form (`models/weights.py` `train_params_from_jax`): the JAX
+# tree's keys and HWIO kernels as f32 leaf tensors, unfolded {w, bn} blocks
+# or folded {w, b} ones (a --init-from artifact). Gradients land on those
+# leaves, BN statistics included, as they do on the JAX tree's.
+# ---------------------------------------------------------------------------
+
+def _train_conv(p: Params, x: torch.Tensor, stride: int = 1, act: bool = True,
+                dtype=torch.float32) -> torch.Tensor:
+    """Conv in the compute dtype (its output rounded to it, as
+    `lax.conv_general_dilated` in bf16 rounds), then an f32 tail: + b, BN
+    with its running statistics, SiLU; one cast back. The HWIO kernel moves
+    to OIHW here, so its gradient lands on the HWIO leaf."""
+    w = p["w"]
+    pad = (w.shape[0] - 1) // 2
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(dtype).permute(3, 2, 0, 1),
+                 stride=stride, padding=pad)
+    y = y.permute(0, 2, 3, 1).float()
+    if "b" in p:
+        y = y + p["b"].float()
+    if "bn" in p:
+        bn = p["bn"]
+        scale = bn["gamma"] * torch.rsqrt(bn["var"] + BN_EPS)
+        y = (y - bn["mean"]) * scale + bn["beta"]
+    if act:
+        y = F.silu(y)
+    return y.to(dtype)
+
+
+def _train_c2f(p: Params, x: torch.Tensor, shortcut: bool, cv,
+               split: bool = False) -> torch.Tensor:
+    """C2f over training-form params, as the JAX package's `_c2f`: with
+    split=True and a folded block (b, no bn), cv1 runs as its two column
+    halves and cv2 as a sum of per-piece convs without bias, then + b and
+    SiLU in the compute dtype; an unfolded block runs the slice form."""
+    cv1, cv2 = p["cv1"], p["cv2"]
+
+    def folded(q):
+        return "bn" not in q and "b" in q
+
+    if split and folded(cv1):
+        w, b = cv1["w"], cv1["b"]
+        c = w.shape[-1] // 2
+        ys = [cv({"w": w[..., :c], "b": b[:c]}, x),
+              cv({"w": w[..., c:], "b": b[c:]}, x)]
+    else:
+        y = cv(cv1, x)
+        c = y.shape[-1] // 2
+        ys = [y[..., :c], y[..., c:]]
+    for mp in p["m"]:
+        ys.append(_bottleneck(mp, ys[-1], shortcut, cv))
+    if split and folded(cv2) and cv2["w"].shape[0] == 1:
+        w2 = cv2["w"]
+        acc = None
+        for i, yi in enumerate(ys):
+            part = cv({"w": w2[:, :, i * c:(i + 1) * c]}, yi, act=False)
+            acc = part if acc is None else acc + part
+        return F.silu(acc + cv2["b"].to(acc.dtype))
+    return cv(cv2, torch.cat(ys, dim=-1))
+
+
+def _train_stem_s2d(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
+    """The s2d stem over training-form params (folded only, refused
+    otherwise as the JAX package refuses them)."""
+    if "bn" in p or "b" not in p:
+        raise ValueError(
+            "stem='s2d' requires BN-folded stem params (w + b, no bn "
+            "block) — run fold_batchnorm() on the checkpoint first")
+    w2 = stem_s2d_weights(p["w"].permute(3, 2, 0, 1)).to(dtype)
+    xp = F.pad(x.to(dtype), (0, 0, 1, 0, 1, 0))
+    y = F.conv2d(xp.permute(0, 3, 1, 2), w2).permute(0, 2, 3, 1).float()
+    return F.silu(y + p["b"].float()).to(dtype)
+
+
+def forward_train_raw(params: Params, spec: ModelSpec, x: torch.Tensor,
+                      dtype=torch.float32, stem: str = "conv",
+                      c2f: str = "slice", conv_fn=None) -> List[torch.Tensor]:
+    """The training forward (the JAX package's `forward_raw(...,
+    accum_f32=False)`): per-level (B, Hi, Wi, 4*reg_max + nc) maps in f32.
+    conv_fn replaces `_train_conv` (same signature)."""
+    conv = conv_fn or _train_conv
+
+    def cv(p, t, stride=1, act=True):
+        return conv(p, t, stride=stride, act=act, dtype=dtype)
+
+    def c2(p, t, shortcut):
+        return _train_c2f(p, t, shortcut, cv, split=(c2f == "split"))
+
+    x = x.to(dtype)
+    if stem == "s2d":
+        x = _train_stem_s2d(params["m0"], x, dtype)
+    else:
+        x = cv(params["m0"], x, stride=2)
+    x = cv(params["m1"], x, stride=2)
+    x = c2(params["m2"], x, True)
+    x = cv(params["m3"], x, stride=2)
+    p3_in = c2(params["m4"], x, True)
+    x = cv(params["m5"], p3_in, stride=2)
+    p4_in = c2(params["m6"], x, True)
+    x = cv(params["m7"], p4_in, stride=2)
+    x = c2(params["m8"], x, True)
+    p5_in = _sppf(params["m9"], x, cv)
+    x = torch.cat([_upsample2x(p5_in), p4_in], dim=-1)
+    n12 = c2(params["m12"], x, False)
+    x = torch.cat([_upsample2x(n12), p3_in], dim=-1)
+    p3 = c2(params["m15"], x, False)
+    x = torch.cat([cv(params["m16"], p3, stride=2), n12], dim=-1)
+    p4 = c2(params["m18"], x, False)
+    x = torch.cat([cv(params["m19"], p4, stride=2), p5_in], dim=-1)
+    p5 = c2(params["m21"], x, False)
+    det = params["m22"]
+    outs = []
+    for level, f in enumerate((p3, p4, p5)):
+        box = f
+        for i, bp in enumerate(det["cv2"][level]):
+            box = cv(bp, box, act=(i < 2))
+        cls = f
+        for i, cp in enumerate(det["cv3"][level]):
+            cls = cv(cp, cls, act=(i < 2))
         outs.append(torch.cat([box.float(), cls.float()], dim=-1))
     return outs
 

@@ -23,6 +23,12 @@
 //       src/network/reliable_udp.cpp:602-605, minus two thread hops)
 //   zl_udp_send(fd, data, len, ip_be, port_be) -> sent bytes or -errno
 //   zl_udp_send_batch(fd, arena, descs, n) -> sendmmsg burst (result sends)
+//   zl_udp_rxq_ovfl() -> the socket's drop count (SO_RXQ_OVFL) as last seen
+//       by this thread's receive calls: the kernel's count of datagrams it
+//       refused at a full receive buffer, carried on each datagram received
+//       after a drop (0 until one)
+//   zl_udp_buffers(fd, &rcvbuf, &sndbuf) -> 0 or -errno: the buffer sizes
+//       the kernel granted (it caps a request at rmem_max / wmem_max)
 //   zl_udp_close(fd)
 
 #include <arpa/inet.h>
@@ -43,6 +49,18 @@ extern "C" {
 static const int ZL_RECV_BATCH_MAX = 128;
 
 static const int ZL_OPEN_REUSEPORT = 1;
+
+// Ask for a socket buffer; where the kernel granted less (it caps a request
+// at rmem_max / wmem_max), ask again with the FORCE option, which passes the
+// cap for a privileged process and is refused otherwise.
+static void zl_size_buffer(int fd, int opt, int force_opt, int size) {
+    if (size <= 0) return;
+    ::setsockopt(fd, SOL_SOCKET, opt, &size, sizeof(size));
+    int got = 0;
+    socklen_t len = sizeof(got);
+    if (::getsockopt(fd, SOL_SOCKET, opt, &got, &len) == 0 && got < size)
+        ::setsockopt(fd, SOL_SOCKET, force_opt, &size, sizeof(size));
+}
 
 int zl_udp_open3(const char* ip, int port, int rcvbuf, int sndbuf,
                  int flags) {
@@ -66,8 +84,11 @@ int zl_udp_open3(const char* ip, int port, int rcvbuf, int sndbuf,
             return -e;
         }
     }
-    if (rcvbuf > 0) ::setsockopt(fd, SOL_SOCKET, SO_RCVBUF, &rcvbuf, sizeof(rcvbuf));
-    if (sndbuf > 0) ::setsockopt(fd, SOL_SOCKET, SO_SNDBUF, &sndbuf, sizeof(sndbuf));
+    zl_size_buffer(fd, SO_RCVBUF, SO_RCVBUFFORCE, rcvbuf);
+    zl_size_buffer(fd, SO_SNDBUF, SO_SNDBUFFORCE, sndbuf);
+    // Best effort: without it zl_udp_rxq_ovfl stays 0.
+    int ovfl = 1;
+    ::setsockopt(fd, SOL_SOCKET, SO_RXQ_OVFL, &ovfl, sizeof(ovfl));
     sockaddr_in addr{};
     addr.sin_family = AF_INET;
     addr.sin_addr.s_addr = htonl(INADDR_ANY);
@@ -105,6 +126,11 @@ int zl_udp_open(int port, int rcvbuf, int sndbuf) {
 static thread_local mmsghdr g_msgs[ZL_RECV_BATCH_MAX];
 static thread_local iovec g_iovs[ZL_RECV_BATCH_MAX];
 static thread_local sockaddr_in g_addrs[ZL_RECV_BATCH_MAX];
+// One SO_RXQ_OVFL control message (a uint32) per datagram, and the largest
+// drop count seen so far (the count is cumulative).
+static const size_t ZL_CTRL_SIZE = CMSG_SPACE(sizeof(uint32_t));
+alignas(cmsghdr) static thread_local char g_ctrl[ZL_RECV_BATCH_MAX][ZL_CTRL_SIZE];
+static thread_local uint32_t g_rxq_ovfl = 0;
 
 static int zl_recv_prologue(int fd, uint8_t* arena, int arena_cap,
                             int* max_pkts, int timeout_ms, int* slot_out) {
@@ -126,14 +152,36 @@ static int zl_recv_prologue(int fd, uint8_t* arena, int arena_cap,
         g_msgs[i].msg_hdr.msg_iovlen = 1;
         g_msgs[i].msg_hdr.msg_name = &g_addrs[i];
         g_msgs[i].msg_hdr.msg_namelen = sizeof(sockaddr_in);
+        g_msgs[i].msg_hdr.msg_control = g_ctrl[i];
+        g_msgs[i].msg_hdr.msg_controllen = ZL_CTRL_SIZE;
     }
     int n = ::recvmmsg(fd, g_msgs, *max_pkts, MSG_DONTWAIT, nullptr);
     if (n < 0) {
         int e = errno;
         return (e == EAGAIN || e == EWOULDBLOCK || e == EINTR) ? 0 : -e;
     }
+    for (int i = 0; i < n; i++) {
+        msghdr* h = &g_msgs[i].msg_hdr;
+        for (cmsghdr* c = CMSG_FIRSTHDR(h); c != nullptr; c = CMSG_NXTHDR(h, c)) {
+            if (c->cmsg_level == SOL_SOCKET && c->cmsg_type == SO_RXQ_OVFL) {
+                uint32_t v;
+                std::memcpy(&v, CMSG_DATA(c), sizeof(v));
+                if (v > g_rxq_ovfl) g_rxq_ovfl = v;
+            }
+        }
+    }
     *slot_out = slot;
     return n;
+}
+
+uint32_t zl_udp_rxq_ovfl() { return g_rxq_ovfl; }
+
+int zl_udp_buffers(int fd, int* rcvbuf, int* sndbuf) {
+    socklen_t len = sizeof(int);
+    if (::getsockopt(fd, SOL_SOCKET, SO_RCVBUF, rcvbuf, &len) != 0) return -errno;
+    len = sizeof(int);
+    if (::getsockopt(fd, SOL_SOCKET, SO_SNDBUF, sndbuf, &len) != 0) return -errno;
+    return 0;
 }
 
 int zl_udp_recv_batch(int fd, uint8_t* arena, int arena_cap,

@@ -61,6 +61,7 @@ from ..protocol import native
 from ..protocol.packets import next_sequence, now_ms
 from ..ops.roi import DeviceFrameCache
 from ..utils.logging import get_logger
+from ..utils.netstats import SystemUdpDrops, request_buffers, socket_drops
 from ..utils.stats import Counter, RollingStats
 from .adapters import GameAdapter, get_adapter
 from .capture import DatasetCapture
@@ -279,6 +280,10 @@ class DetectionServer:
         self._by_addr: Dict[Addr, int] = {}
         self._next_client_id = 1
         self._transport = None
+        # The asyncio socket's granted (SO_RCVBUF, SO_SNDBUF), and the
+        # machine's UDP drop counters from the bind on (status()).
+        self._socket_buffers: Optional[Tuple[int, int]] = None
+        self._system_udp: Optional[SystemUdpDrops] = None
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._mgmt_task: Optional[asyncio.Task] = None
         self._watch_task: Optional[asyncio.Task] = None
@@ -389,6 +394,7 @@ class DetectionServer:
                         reuse_port=reuse or None)
                     self._size_socket_buffers()
                 self.port = p
+                self._system_udp = SystemUdpDrops()
                 break
             except OSError:
                 if attempt == len(candidates) - 1:
@@ -1194,19 +1200,47 @@ class DetectionServer:
 
     def _size_socket_buffers(self) -> None:
         """Give the asyncio socket the kernel buffers network.recv_buffer_size
-        and send_buffer_size ask for (the native transport sizes its own; the
-        kernel caps both at its rmem_max / wmem_max). At the system default
-        a receive buffer holds a few raw frames, and a short stall of the
-        event loop drops the rest in the kernel."""
-        sock = self._transport.get_extra_info("socket")
-        for opt, size in ((socket.SO_RCVBUF,
-                           self.config.network.recv_buffer_size),
-                          (socket.SO_SNDBUF,
-                           self.config.network.send_buffer_size)):
-            try:
-                sock.setsockopt(socket.SOL_SOCKET, opt, int(size))
-            except OSError as e:
-                log.warning("socket buffer size %d refused: %s", size, e)
+        and send_buffer_size ask for (the native transport sizes its own).
+        The kernel caps a request at its rmem_max / wmem_max (on some
+        kernels far below what a load needs: 8 MiB of the 64 MiB asked on
+        the H100's machine); a privileged process asks again past the cap
+        (`utils/netstats.py` `request_buffers`). At the system default a
+        receive buffer holds a few raw frames, and a stall of the event
+        loop (a profiler's stop holds the GIL for up to 223 ms) drops the
+        rest in the kernel. status() reports what was granted."""
+        self._socket_buffers = request_buffers(
+            self._transport.get_extra_info("socket"),
+            self.config.network.recv_buffer_size,
+            self.config.network.send_buffer_size)
+        log.info("udp socket buffers granted: rcvbuf %d B, sndbuf %d B "
+                 "(asked %d, %d)", *self._socket_buffers,
+                 self.config.network.recv_buffer_size,
+                 self.config.network.send_buffer_size)
+
+    def socket_stats(self) -> Dict[str, object]:
+        """The server socket's granted buffers and its own receive-buffer
+        drops (the native transport's SO_RXQ_OVFL count, the asyncio
+        socket's SO_MEMINFO count; None where the kernel gives neither),
+        and the machine's UDP drop counters since the bind, labelled
+        system-wide (every UDP socket of the machine counts there, the
+        clients' too)."""
+        t = self._transport
+        if hasattr(t, "buffer_sizes"):
+            buffers, overflows = t.buffer_sizes(), t.rx_overflows
+            source = "SO_RXQ_OVFL" if overflows is not None else None
+        else:
+            buffers = self._socket_buffers
+            sock = t.get_extra_info("socket") if t is not None else None
+            overflows = socket_drops(sock) if sock is not None else None
+            source = "SO_MEMINFO" if overflows is not None else None
+        return {
+            "rcvbuf": buffers[0] if buffers else None,
+            "sndbuf": buffers[1] if buffers else None,
+            "rx_overflows": overflows,
+            "rx_overflows_source": source,
+            "system_udp": (self._system_udp.since_start()
+                           if self._system_udp is not None else None),
+        }
 
     def _sync_peers(self) -> None:
         """Install the live client set into the native transport's inline-ACK
@@ -1686,6 +1720,9 @@ class DetectionServer:
                 "bad_packets": self.bad_packets.value,
                 # Datagrams the kernel dropped at a full receive buffer.
                 "kernel_drops": udp_kernel_drops(self.port),
+                # Granted buffers, the socket's own overflow count, and the
+                # machine's UDP drops since the bind (system-wide).
+                **self.socket_stats(),
                 "unknown_sender_naks": self.unknown_sender_naks.value,
                 "rx_pps": round(self.packets_received.rate(), 1),
             },

@@ -26,6 +26,8 @@ from ..protocol import (
     build_roi_header, parse_packet,
 )
 from ..protocol import native
+from ..utils.netstats import (ANC_BUFSIZE, enable_rxq_ovfl, granted_buffers,
+                              rxq_ovfl)
 from .frames import encode_jpeg
 
 
@@ -72,6 +74,12 @@ class SimClient:
                      else "0.0.0.0")
         self.sock.bind((bind_host, 0))
         self.sock.settimeout(timeout)
+        # The receive socket's own drop count (SO_RXQ_OVFL, carried on each
+        # datagram received after a drop): results the kernel refused at
+        # this client's full receive buffer. None where the kernel does not
+        # give it.
+        self.rx_overflows: Optional[int] = (0 if enable_rxq_ovfl(self.sock)
+                                            else None)
         self.server_info = None
         self.results: List[DetectionResultPacket] = []
         # Lifetime count, immune to callers draining/clearing `results`
@@ -108,6 +116,25 @@ class SimClient:
         self._result_event = threading.Event()
 
     # ------------------------------------------------------------------ io
+    def _recv(self) -> bytes:
+        """One datagram; notes the drop count it carries."""
+        data, anc, _, _ = self.sock.recvmsg(65536, ANC_BUFSIZE)
+        if self.rx_overflows is not None:
+            n = rxq_ovfl(anc)
+            if n is not None and n > self.rx_overflows:
+                self.rx_overflows = n
+        return data
+
+    def socket_stats(self) -> Dict[str, Optional[int]]:
+        """The receive socket's granted buffers (None once closed) and its
+        overflow count."""
+        try:
+            rcv, snd = granted_buffers(self.sock)
+        except OSError:
+            rcv = snd = None
+        return {"rcvbuf": rcv, "sndbuf": snd,
+                "rx_overflows": self.rx_overflows}
+
     def _send(self, data: bytes) -> None:
         datas = self.faults.apply(data) if self.faults else [data]
         for d in datas:
@@ -125,10 +152,10 @@ class SimClient:
                 # Cap each blocking recv at the REMAINING handshake window:
                 # the constructor's socket timeout (default 5 s, caller-set
                 # up to anything) would otherwise overrule the documented
-                # 3 s deadline in a single recvfrom (review r5).
+                # 3 s deadline in a single receive.
                 self.sock.settimeout(max(deadline - time.monotonic(), 0.01))
                 try:
-                    data, _ = self.sock.recvfrom(65536)
+                    data = self._recv()
                 except socket.timeout:
                     break
                 try:
@@ -156,7 +183,7 @@ class SimClient:
         self.sock.settimeout(0.2)
         while self._running:
             try:
-                data, _ = self.sock.recvfrom(65536)
+                data = self._recv()
             except socket.timeout:
                 continue
             except OSError:

@@ -121,6 +121,19 @@ def _bind_udp_open3_symbol(lib: ctypes.CDLL) -> bool:
         return False
 
 
+def _bind_udp_stats_symbols(lib: ctypes.CDLL) -> bool:
+    try:
+        lib.zl_udp_rxq_ovfl.restype = ctypes.c_uint32
+        lib.zl_udp_rxq_ovfl.argtypes = []
+        lib.zl_udp_buffers.restype = ctypes.c_int
+        lib.zl_udp_buffers.argtypes = [ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_int),
+                                       ctypes.POINTER(ctypes.c_int)]
+        return True
+    except AttributeError:
+        return False
+
+
 def _bind_udp_v2_symbols(lib: ctypes.CDLL) -> bool:
     try:
         lib.zl_udp_recv_batch2.restype = ctypes.c_int
@@ -143,6 +156,9 @@ HAVE_NATIVE_UDP_V2 = HAVE_NATIVE_UDP and _bind_udp_v2_symbols(_codec._LIB)
 # builds lack it; the server falls back to the asyncio endpoint then).
 HAVE_NATIVE_UDP_REUSEPORT = (HAVE_NATIVE_UDP
                              and _bind_udp_open2_symbol(_codec._LIB))
+# The socket's drop count (SO_RXQ_OVFL) and its granted buffers.
+HAVE_NATIVE_UDP_STATS = (HAVE_NATIVE_UDP
+                         and _bind_udp_stats_symbols(_codec._LIB))
 # Interface-scoped binds (network.bind_address) need zl_udp_open3.
 HAVE_NATIVE_UDP_BIND_ADDR = (HAVE_NATIVE_UDP
                              and _bind_udp_open3_symbol(_codec._LIB))
@@ -206,6 +222,9 @@ class NativeUdpTransport:
         # reference each iteration — assignment is atomic under the GIL.
         self._peers = (ctypes.c_uint64 * 0)()
         self.dropped = 0  # packets skipped by send_many on send errors
+        # The socket's own receive-buffer drops (SO_RXQ_OVFL), as last
+        # carried by a received datagram; None without the symbol.
+        self.rx_overflows: Optional[int] = 0 if HAVE_NATIVE_UDP_STATS else None
         # Set when the drain thread gave up on a permanent recv failure:
         # tx still works but nothing is ever read — the server surfaces
         # this instead of letting clients silently time out.
@@ -214,6 +233,16 @@ class NativeUdpTransport:
         self._thread = threading.Thread(target=self._drain_loop,
                                         name="zlt-native-udp", daemon=True)
         self._thread.start()
+
+    def buffer_sizes(self) -> Optional[Tuple[int, int]]:
+        """(SO_RCVBUF, SO_SNDBUF) as the kernel granted them."""
+        if not HAVE_NATIVE_UDP_STATS or self.fd < 0:
+            return None
+        rcv, snd = ctypes.c_int(0), ctypes.c_int(0)
+        if self._lib.zl_udp_buffers(self.fd, ctypes.byref(rcv),
+                                    ctypes.byref(snd)) != 0:
+            return None
+        return rcv.value, snd.value
 
     # ---------------------------------------------------------------- peers
     def set_peers(self, addrs: Iterable[Addr]) -> None:
@@ -346,6 +375,8 @@ class NativeUdpTransport:
             consec_errs = 0
             if n == 0:
                 continue
+            if self.rx_overflows is not None:
+                self.rx_overflows = int(self._lib.zl_udp_rxq_ovfl())
             batch: List[Datagram] = []
             for i in range(n):
                 d = descs[i]
