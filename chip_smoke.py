@@ -165,11 +165,47 @@ and the script exits non-zero:
    kernel's launches reset just before and read just after (> 0, the 1x1
    on the tensor cores); the same for the deployed weights; and their f32
    evaluate against the JAX package's in the fixture (EVAL_TOL).
-13. report: a `kernels:` line, one JSON line of kernel numbers (launches on
+13. mesh: the deployed config on virtual 2x1 and 1x2 serving meshes over
+   cuda:0 (`parallel/mesh.py`; `available_devices` replaced by a repeated
+   cuda:0), at batch 8. f32, hosted (dispatch) and cached (a slot-sharded
+   DeviceFrameCache whose every batch row's slots live on another data
+   row's shard): counts and classes equal to the single-device engine's,
+   boxes and scores within 1e-3 (cuDNN may pick another algorithm at a
+   halved Cout), the largest differences printed; bf16 against the
+   single-device f32 engine through bf16_gate. Every kernel against its
+   plain version at data row 0's channel-sharded shapes (check_kernels),
+   the 1x1 calls on the tensor cores out of all; the mesh path through
+   the entry points (infer_batch and dispatch_from_cache) with the counts
+   reset just before and read just after; the meshed step's device busy
+   and wall time beside the single-device step's. Then both dp2 example
+   configs boot on the card and serve a batch: on one card single-device,
+   with the engine's warning; on two or more on a real mesh.
+14. fleet: `python -m zero_latency_yolo_tpu_torch.serve_fleet` with two
+   shards of the deployed config on one UDP port, both on the card (free
+   loopback ports). Both shards' /statusz must show the engine warmed on
+   cuda; the load of phase 6 (8 SimClients of raw 160x120 frames at 60 fps
+   for 4 s) on the fleet's port: every client served, per shard received
+   = results + engine drops, all clients' frames sent = the shards'
+   results + engine drops + their sockets' own overflows (within
+   SERVER_SLACK); each shard's results a second, detect latency p50 and
+   p99 and system_udp printed. Then a SIGHUP roll under the same load, the
+   clients re-handshaking on a drain notice: the roll completes, both
+   shards respawn, every client is served after it, and the frames
+   unaccounted for (sent, less the clients' results and the frames every
+   shard process dropped or refused: its drops, cache rejects and frames
+   from senders without a session, from the last count its stop() logs
+   once the fleet is stopped with SIGTERM; and the datagrams the kernel
+   dropped at a shard's full socket, by the sockets' own counts or, where
+   they have none, the machine's Udp.RcvbufErrors over the roll) are at
+   most those in flight at each change of the shard group; the roll's
+   time, the longest gap between two results of a client, the accounting
+   by shard process and a timeline of the roll's steps printed. The
+   manager exits with rc 0 and no shard left.
+15. report: a `kernels:` line, one JSON line of kernel numbers (launches on
    the main path (the int8 path for the int8 conv), and by path: main,
    frame cache, each server load, the ladder, each variant, the adaptive
-   load, the int8 path, its steps and its server loads, the train eval;
-   each kernel's
+   load, the int8 path, its steps and its server loads, the train eval,
+   the mesh path; each kernel's
    numbers at the yolov8s 640 batch-16 shapes, the int8 conv's at the int8
    batch-16 shapes), and the result line `{"ok": true, "device": {...}}`
    last.
@@ -368,13 +404,15 @@ def wall_ms(torch, fn, iters: int = 10, warmup: int = 3) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_step(torch, fn, iters: int = 5, top: int = 0) -> tuple:
+def profile_step(torch, fn, iters: int = 5, top: int = 0,
+                 nms_stages: int = 1) -> tuple:
     """Device time of fn() by kernel (bench_host.step_profile: torch.profiler,
     CUDA activity; only the kernel and copy events are summed, not the CPU
-    ops that launched them). Returns (the profile, {port kernel: device ms})
-    per call and prints the `top` kernels."""
+    ops that launched them; fn runs `nms_stages` NMS stages). Returns (the
+    profile, {port kernel: device ms}) per call and prints the `top`
+    kernels."""
     from zero_latency_yolo_tpu_torch.bench_host import step_profile
-    prof = step_profile(torch, fn, iters)
+    prof = step_profile(torch, fn, iters, nms_stages)
     for ms, n, key in prof["rows"][:top]:
         print(f"  {ms:8.4f} ms/step  {n:4d} launches/step  {key[:90]}")
     own = {name: sum(ms for ms, _, key in prof["rows"]
@@ -832,23 +870,25 @@ def fixture_config(cfg, fx):
     return out
 
 
-def kernels_vs_plain(got: np.ndarray, want: np.ndarray, label: str) -> None:
-    """The packed f32 step with kernels against the plain step: counts and
-    classes equal, boxes and scores within 1e-3."""
+def kernels_vs_plain(got: np.ndarray, want: np.ndarray, label: str,
+                     against: str = "plain") -> None:
+    """The packed f32 step with kernels against the plain step (or another
+    step, named by `against`): counts and classes equal, boxes and scores
+    within 1e-3."""
     from zero_latency_yolo_tpu_torch.ops.nms import unpack_outputs
     g, w = unpack_outputs(got), unpack_outputs(want)
     require(np.array_equal(g["count"], w["count"]),
-            f"{label} counts differ: {g['count']} vs plain {w['count']}")
+            f"{label} counts differ: {g['count']} vs {against} {w['count']}")
     valid = np.arange(32)[None, :] < w["count"][:, None]
     require(np.array_equal(g["classes"][valid], w["classes"][valid]),
-            f"{label} classes differ from the plain step")
+            f"{label} classes differ from the {against} step")
     box_err = float(np.abs(g["boxes"] - w["boxes"])[valid].max(initial=0))
     score_err = float(np.abs(g["scores"] - w["scores"])[valid].max(initial=0))
-    print(f"{label} kernels vs plain: counts {w['count'].tolist()} equal, "
+    print(f"{label} vs {against}: counts {w['count'].tolist()} equal, "
           f"classes equal, max box err {box_err:.3g}, max score err "
           f"{score_err:.3g} (tolerance 1e-3)", flush=True)
     require(box_err < 1e-3 and score_err < 1e-3,
-            f"{label} boxes or scores outside 1e-3 of the plain step")
+            f"{label} boxes or scores outside 1e-3 of the {against} step")
 
 
 def _packed_rows(u: dict, f: int) -> np.ndarray:
@@ -2865,6 +2905,717 @@ def _cpu_template(torch, spec, tx):
         init_params(0, spec, folded=False), device="cpu"), tx, ema=True)
 
 
+# Phase 13, the serving mesh: the virtual meshes the deployed config runs on
+# over cuda:0, and the two dp2 example configs.
+MESH_SHAPES = ((2, 1), (1, 2))
+MESH_BATCH = 8
+DP2_CONFIGS = (ROOT / "configs" / "examples" / "server-64stream-dp2.json",
+               ROOT / "configs" / "examples" / "server-16stream-640-dp2.json")
+
+
+class _Warnings:
+    """The warnings a logger emits while it is attached."""
+
+    def __init__(self, name: str) -> None:
+        import logging
+        self.logger = logging.getLogger(name)
+        self.messages = []
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = lambda record: self.messages.append(
+            record.getMessage())
+
+    def __enter__(self) -> "_Warnings":
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.logger.removeHandler(self.handler)
+
+
+def _host_out(engine, pending) -> np.ndarray:
+    """complete() a pending batch and return its packed output."""
+    engine.complete(pending)
+    out = pending.host if pending.host is not None else pending.out
+    return out.cpu().numpy().copy()
+
+
+def _cached_out(engine, frames, max_hw) -> tuple:
+    """The frames written as keyframes of clients 1..n into a frame cache of
+    the engine's mesh (slots n-1..0: each batch row's slots on another data
+    row's shard) and served with dispatch_from_cache. Returns (packed
+    output, the cache)."""
+    from zero_latency_yolo_tpu_torch.ops.roi import DeviceFrameCache
+    from zero_latency_yolo_tpu_torch.runtime.engine import InferenceRequest
+    cache = DeviceFrameCache(len(frames), *max_hw, device=DEVICE,
+                             mesh=engine.mesh)
+    ids = list(range(1, len(frames) + 1))
+    for cid, f in zip(ids, frames):
+        require(cache.write_keyframe(cid, f), "keyframe refused")
+    reqs = [InferenceRequest(client_id=cid, frame_id=i, timestamp=i,
+                             width=f.shape[1], height=f.shape[0], data=None)
+            for i, (cid, f) in enumerate(zip(ids, frames))]
+    return _host_out(engine, cache.dispatch_with(
+        lambda c, sl, hs, ws: engine.dispatch_from_cache(reqs, c, sl, hs, ws),
+        ids)), cache
+
+
+def record_mesh_calls(engine, frames_d, hs, ws) -> dict:
+    """The inputs that data row 0 of a meshed engine hands each kernel's
+    plain version in one plain bf16 step of its rows (record_path_calls on
+    the row's placed tree: the channel-sharded shapes)."""
+    from zero_latency_yolo_tpu_torch.models import yolov8 as ym
+    from zero_latency_yolo_tpu_torch.ops import nms as nms_mod
+    calls = {"conv1x1_bias_act": [], "bias_silu": [], "nms_keep": []}
+    saved = (ym.conv1x1_bias_act_plain, ym.bias_silu_plain,
+             nms_mod.nms_keep_plain)
+
+    def recorder(name, fn):
+        def rec(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return fn(*args, **kwargs)
+        return rec
+
+    ym.conv1x1_bias_act_plain = recorder("conv1x1_bias_act", saved[0])
+    ym.bias_silu_plain = recorder("bias_silu", saved[1])
+    nms_mod.nms_keep_plain = recorder("nms_keep", saved[2])
+    try:
+        engine._build_step(MESH_BATCH, plain=True)(
+            engine._params[0], frames_d, hs, ws,
+            engine._row_class_weights[0], engine.config.confidence_threshold,
+            engine.config.nms_threshold)
+    finally:
+        (ym.conv1x1_bias_act_plain, ym.bias_silu_plain,
+         nms_mod.nms_keep_plain) = saved
+    return calls
+
+
+def mesh_phase(torch, smi_line: str) -> dict:
+    """Phase 13, the serving mesh (see the module docstring). Returns the
+    launches of the mesh path (both meshes) and each mesh's kernel
+    report."""
+    from zero_latency_yolo_tpu_torch.parallel import mesh as pt_mesh
+    from zero_latency_yolo_tpu_torch.runtime.engine import (InferenceEngine,
+                                                            InferenceRequest)
+    dev0 = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    cfg = load_config(CONFIG)
+    conf, nms = cfg.confidence_threshold, cfg.nms_threshold
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.tpu.dtype = "float32"
+    bucket = (608, 800)
+    max_hw = (max(b[0] for b in cfg.tpu.frame_buckets),
+              max(b[1] for b in cfg.tpu.frame_buckets))
+    game = [synthetic_frame(800, 600, seed=s, t=0.3 * s)
+            for s in range(4, 4 + MESH_BATCH)]
+    reqs = frame_requests(InferenceRequest, game)
+    task = task_frames(MESH_BATCH, 416, seed=777)
+    treqs = frame_requests(InferenceRequest, list(task))
+    single16 = InferenceEngine(cfg, device=DEVICE)
+    single32 = InferenceEngine(cfg32, device=DEVICE)
+    single16.warmup(batches=[MESH_BATCH])
+    # The f32 gates on frames of the task the weights were trained on.
+    want_hosted = _host_out(single32, single32.dispatch(treqs))
+    want_cached, _ = _cached_out(single32, list(task), max_hw)
+    require(want_hosted[:, 0].sum() > 0, "mesh f32 gate vacuous: no "
+                                         "detections")
+    frames_d, hs, ws = staged_batch(torch, game, bucket, dev0)
+    step1 = single16.get_step(MESH_BATCH, bucket)
+
+    def single_step():
+        return step1(single16._params, frames_d, hs, ws,
+                     single16._class_weights, conf, nms)
+    single_prof = profile_step(torch, single_step)[0]
+    single_busy, single_kernels = single_prof["busy_ms"], single_prof["kernels"]
+    single_wall = wall_ms(torch, single_step)
+    out = {"launches": {n: 0 for n in ("nms_keep", "conv1x1_bias_act",
+                                       "conv1x1_wgmma", "bias_silu",
+                                       "conv_int8")},
+           "report": {}}
+    real = pt_mesh.available_devices
+    try:
+        for d, m in MESH_SHAPES:
+            label = f"mesh {d}x{m}"
+            pt_mesh.available_devices = (
+                lambda device="cuda", n=d * m: [dev0] * n)
+            cm16 = copy.deepcopy(cfg)
+            cm16.tpu.mesh_data, cm16.tpu.mesh_model = d, m
+            cm32 = copy.deepcopy(cm16)
+            cm32.tpu.dtype = "float32"
+            e16 = InferenceEngine(cm16, device=DEVICE)
+            e32 = InferenceEngine(cm32, device=DEVICE)
+            st = e16.status()
+            require(e16.mesh is not None and e16.mesh.virtual
+                    and st["mesh"] == f"{d}x{m}",
+                    f"{label}: engine status {st}")
+            print(f"{label}: {e16.mesh.describe()}, batch buckets "
+                  f"{e16.batch_buckets}; statusz mesh {st['mesh']} devices "
+                  f"{st['mesh_devices']} virtual {st['mesh_virtual']}",
+                  flush=True)
+            e16.warmup()
+            # f32, hosted and cached, against the single-device engine.
+            kernels_vs_plain(_host_out(e32, e32.dispatch(treqs)), want_hosted,
+                             f"{label} f32 hosted",
+                             against="single-device")
+            got, cache = _cached_out(e32, list(task), max_hw)
+            if d > 1:
+                per = cache.num_slots // d
+                rows = pt_mesh.batch_rows(e32.mesh, MESH_BATCH)
+                require(all(cache.slot(c + 1) // per != r
+                            for r, sl in enumerate(rows)
+                            for c in range(sl.start, sl.stop)),
+                        f"{label}: a batch row's slot on its own shard")
+                print(f"{label} cached: every batch row's {per} slots live "
+                      "on the other data row's shard", flush=True)
+            kernels_vs_plain(got, want_cached, f"{label} f32 cached",
+                             against="single-device")
+            del cache
+            # bf16 against the single-device f32 engine, detection level.
+            g = bf16_gate(torch, e16, single32, treqs, task, conf, nms)
+            print(f"{label} bf16 vs single-device f32 (task frames): counts "
+                  f"{g['counts_bf16']} vs {g['counts_f32']}; literal gate "
+                  f"{g['literal']}; margin gate {g['margin']} (excused "
+                  f"{g['excused']}); worst twin IoU {g['worst_iou']:.4f}, "
+                  f"worst conf delta {g['worst_conf']:.4f}", flush=True)
+            for note in g["notes"]:
+                print(f"  on a threshold: {note}", flush=True)
+            require(sum(g["counts_f32"]) > 0 and all(g["margin"]),
+                    f"{label}: bf16 detection gate failed")
+            # Every kernel against its plain version at the sharded shapes
+            # of data row 0 (bf16, the deployed dtype).
+            bp = MESH_BATCH // d
+            fr, hr, wr = staged_batch(torch, game[:bp], bucket, dev0)
+            with torch.inference_mode():
+                calls = record_mesh_calls(e16, fr, hr, wr)
+                print(f"{label} row 0 kernel calls a step: " + ", ".join(
+                    f"{n} {len(c)}" for n, c in calls.items()) + "; 1x1 "
+                    "Cout " + str(sorted({int(a[1].shape[1]) for a, _ in
+                                          calls["conv1x1_bias_act"]})),
+                    flush=True)
+                out["report"][label] = check_kernels(torch, calls, nms, dev0)
+                torch.cuda.synchronize()
+            routes = out["report"][label]["conv1x1_bias_act"]["routes"]
+            print(f"{label}: 1x1 calls on the tensor cores {routes['wgmma']} "
+                  f"of {sum(routes.values())}", flush=True)
+            # The mesh path through the entry points, counts reset just
+            # before and read just after.
+            launches = reset_and_read(lambda: (
+                e16.infer_batch(reqs), _cached_out(e16, game, max_hw)))
+            require_launched(launches, label)
+            print(f"{label} path launches (infer_batch + dispatch_from_cache, "
+                  f"batch {MESH_BATCH}): {launches}", flush=True)
+            for n in out["launches"]:
+                out["launches"][n] += launches[n]
+            # Device busy of the meshed step beside the single-device one.
+            rows16 = [staged_batch(torch, game[sl], bucket, dev0)
+                      for sl in pt_mesh.batch_rows(e16.mesh, MESH_BATCH)]
+
+            def meshed_step():
+                return e16._step_rows(cfg.detection.model_width, MESH_BATCH,
+                                      e16._params, rows16)
+            prof = profile_step(torch, meshed_step, nms_stages=d)[0]
+            wall = wall_ms(torch, meshed_step)
+            out["report"][label]["busy_ms"] = prof["busy_ms"]
+            print(f"{label} bf16 step batch {MESH_BATCH} on {smi_line}: "
+                  f"device busy {prof['busy_ms']:.3f} ms (single-device "
+                  f"{single_busy:.3f} ms), {prof['kernels']} kernels (single-"
+                  f"device {single_kernels}); "
+                  f"wall {wall:.3f} ms (single-device {single_wall:.3f} ms); "
+                  "profiler and host clock", flush=True)
+            del e16, e32
+    finally:
+        pt_mesh.available_devices = real
+    out["single_busy_ms"] = single_busy
+
+    # The dp2 example configs on the cards there are: one card serves them
+    # single-device with a warning, two or more on a real mesh.
+    count = torch.cuda.device_count()
+    for path in DP2_CONFIGS:
+        dcfg = load_config(path)
+        with _Warnings("zlt.engine") as warned:
+            eng = InferenceEngine(dcfg, device=DEVICE)
+        st = eng.status()
+        require(not eng.simulation, f"{path.name}: simulation mode")
+        if count >= 2:
+            require(eng.mesh is not None and not eng.mesh.virtual,
+                    f"{path.name} on {count} cards: no real mesh ({st})")
+        else:
+            require(eng.mesh is None and st["mesh"] == "1x1"
+                    and any("single-device" in w for w in warned.messages),
+                    f"{path.name} on one card: {st}, warnings "
+                    f"{warned.messages}")
+        b = min(eng.batch_buckets)
+        res = eng.infer_batch(frame_requests(InferenceRequest, game[:b]))
+        require(len(res) == b and all(
+            0.0 <= v <= 1.0 for r in res for dd in r.detections
+            for v in (dd.x, dd.y, dd.width, dd.height, dd.confidence)),
+            f"{path.name}: {len(res)} results of {b}")
+        print(f"{path.name} on {count} card(s): mesh {st['mesh']} (asked "
+              f"{st['mesh_requested']}) devices {st['mesh_devices']}; "
+              f"warning: {warned.messages[:1]}; served a batch of {b}: "
+              f"{sum(len(r.detections) for r in res)} detections", flush=True)
+        del eng
+    return out
+
+
+# Phase 14, the fleet: shards of the deployed config on one UDP port, all
+# on the one card; the load of phase 6 on it, then a SIGHUP roll under
+# load. Each change of the port's shard group in a roll (a shard leaves, a
+# shard joins: two a shard) may lose each client's frames in flight: those
+# queued for it at the shard it leaves (max_queue_size), those in the
+# shard's batches in flight (tpu.max_inflight), and the one sent before the
+# drain notice or the re-hash's session-loss answer reaches it.
+FLEET_SHARDS = 2
+FLEET_BOOT_S = 180.0
+FLEET_ROLL_S = 120.0
+
+
+def _fleet_config(directory: Path) -> tuple:
+    """The deployed config for the fleet on free loopback ports (web_port
+    and web_port + 1 free too), written to `directory`: (path, udp port,
+    web port)."""
+    from zero_latency_yolo_tpu_torch.bench_server import (RECV_BUFFER_BYTES,
+                                                          free_port)
+    import socket as _socket
+    d = json.loads(CONFIG.read_text())
+    d["model_path"] = str(ROOT / d["model_path"])
+    while True:
+        web = free_port(_socket.SOCK_STREAM)
+        try:
+            with _socket.socket() as probe:
+                probe.bind(("127.0.0.1", web + 1))
+            break
+        except OSError:
+            continue
+    port = free_port()
+    d.update(port=port, web_port=web, use_cpu_affinity=False)
+    d["network"] = {"bind_address": "127.0.0.1",
+                    "web_bind_address": "127.0.0.1",
+                    "recv_buffer_size": RECV_BUFFER_BYTES}
+    d["logging"] = {"log_file": str(directory / "server.log")}
+    d["analytics"] = {"stats_file": str(directory / "stats.json")}
+    path = directory / "server.json"
+    path.write_text(json.dumps(d))
+    return path, port, web
+
+
+def _statusz(web: int):
+    from zero_latency_yolo_tpu_torch.bench_server import http_get
+    try:
+        code, body = http_get(web, "/statusz")
+    except OSError:
+        return None
+    return json.loads(body) if code == 200 else None
+
+
+# A shard process's frame counts: those of the server's frame_counts(),
+# which its stop() logs as its last, and its socket's own receive-buffer
+# drops (rx_overflows; not the port's kernel_drops, which every shard of
+# the port counts again). The roll counts a frame that a shard dropped or
+# refused (its drops, cache rejects and frames from senders without a
+# session) or that the kernel dropped at a shard's full socket as
+# accounted for. Where no shard's socket has a count of its own (gVisor,
+# the card's machine), the kernel counts those only machine-wide, in
+# Udp.RcvbufErrors; in the roll's window only its own sockets take
+# datagrams, so the machine's count over the window stands for them.
+COUNT_KEYS = ("frames_received", "results_sent", "dropped", "frames_paused",
+              "cache_rejects", "bad_packets", "frames_unknown_sender",
+              "rx_overflows")
+
+
+def _shard_counts(st: dict) -> dict:
+    """The frame counts (COUNT_KEYS) of one shard's /statusz."""
+    tr, fc = st["transport"], st.get("frame_cache") or {}
+    return dict(frames_received=st["frames_received"],
+                results_sent=st["results_sent"],
+                dropped=int(st["engine"]["dropped"]),
+                frames_paused=st["frames_paused"],
+                cache_rejects=fc.get("cache_rejects", 0),
+                bad_packets=tr["bad_packets"],
+                frames_unknown_sender=tr["frames_unknown_sender"],
+                rx_overflows=tr.get("rx_overflows") or 0)
+
+
+def _udp_rx_queues(port: int) -> list:
+    """The bytes queued in each UDP socket bound to `port`, from
+    /proc/net/udp (Linux; empty where the file is missing)."""
+    try:
+        lines = Path("/proc/net/udp").read_text().splitlines()[1:]
+    except OSError:
+        return []
+    return [int(f[4].split(":")[1], 16) for f in map(str.split, lines)
+            if len(f) > 4 and int(f[1].rsplit(":", 1)[1], 16) == port]
+
+
+def _stopped_counts(directory: Path) -> dict:
+    """The last frame counts (COUNT_KEYS) that every shard process which
+    stopped logged to its shard's log under `directory`, by pid."""
+    import re
+    out = {}
+    for path in sorted(directory.glob("server-*.log*")):
+        for m in re.finditer(r"server stopped: (\{.*\})",
+                             path.read_text(errors="replace")):
+            d = json.loads(m.group(1))
+            out[d["pid"]] = {k: d.get(k) or 0 for k in COUNT_KEYS}
+    return out
+
+
+def _roll_stream(client, frames, fps: float, t0: float, stop, stats) -> None:
+    """Stream raw frames at fps from t0 until `stop` is set, re-handshaking
+    on the same socket after a drain notice (a skipped frame is not
+    sent)."""
+    i = 0
+    while not stop.is_set():
+        delay = t0 + i / fps - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        i += 1
+        if client.server_disconnected:
+            if not client.reconnect():
+                stats["skipped"] += 1
+                continue
+            stats["rehandshakes"] += 1
+        client.send_raw_frame(frames[i % len(frames)])
+        stats["sent"] += 1
+
+
+def _alive(pid: int) -> bool:
+    """Whether process `pid` exists and is not a zombie."""
+    try:
+        stat = Path(f"/proc/{pid}/stat").read_text()
+    except OSError:
+        return False
+    return stat.rsplit(")", 1)[1].split()[0] != "Z"
+
+
+def fleet_phase(torch, smi_line: str) -> dict:
+    """Phase 14, the fleet (see the module docstring). Returns the load's
+    and the roll's numbers."""
+    import tempfile
+    import threading
+    from zero_latency_yolo_tpu_torch.bench_server import (Clients,
+                                                          client_frames,
+                                                          net_counters)
+    from zero_latency_yolo_tpu_torch.runtime.simulator import SimClient
+    from zero_latency_yolo_tpu_torch.utils.netstats import snmp_counters
+    import signal as _signal
+    from zero_latency_yolo_tpu_torch.protocol import CommandType
+    disconnect = int(CommandType.DISCONNECT)
+    tmp = Path(tempfile.mkdtemp(prefix="zlt-fleet-"))
+    cfg_path, port, web = _fleet_config(tmp)
+    fcfg = json.loads(cfg_path.read_text())
+    inflight_per_change = (int(fcfg.get("max_queue_size", 8))
+                           + int(fcfg["tpu"].get("max_inflight", 2)) + 1)
+    webs = [web + i for i in range(FLEET_SHARDS)]
+    log_path = tmp / "fleet.log"
+    t_start = time.perf_counter()
+    with open(log_path, "w", encoding="utf-8") as logf:
+        mgr = subprocess.Popen(
+            [sys.executable, "-m", "zero_latency_yolo_tpu_torch.serve_fleet",
+             "--config", str(cfg_path), "--shards", str(FLEET_SHARDS),
+             "--device", DEVICE, "--status-interval", "0",
+             "--roll-warm-grace", str(FLEET_ROLL_S),
+             "--roll-drain-grace", "15"],
+            cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT)
+
+    def log_tail(n=3000):
+        text = log_path.read_text(errors="replace")
+        return text if n is None else text[-n:]
+
+    def pids():
+        import re
+        return [int(x) for x in re.findall(r"shard \d+: pid=(\d+)",
+                                           log_path.read_text(errors="replace"))]
+    def stop_fleet():
+        """SIGTERM the manager (it stops every shard) and wait for it: its
+        exit code, None if it had to be killed."""
+        if mgr.poll() is None:
+            mgr.send_signal(_signal.SIGTERM)
+        try:
+            return mgr.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            mgr.kill()
+            mgr.wait(timeout=10)
+            return None
+    out = {}
+    clients = None
+    try:
+        deadline = time.perf_counter() + FLEET_BOOT_S
+        sts = [None] * FLEET_SHARDS
+        while time.perf_counter() < deadline and not all(
+                s and s["engine"]["warmed"] == "true" for s in sts):
+            require(mgr.poll() is None, f"fleet manager exited: {log_tail()}")
+            time.sleep(0.5)
+            sts = [_statusz(w) for w in webs]
+        require(all(s and s["engine"]["warmed"] == "true" for s in sts),
+                f"fleet shards not warmed in {FLEET_BOOT_S:g} s: {log_tail()}")
+        for i, s in enumerate(sts):
+            require(s["port"] == port and s["engine"]["device"].startswith(
+                DEVICE) and s["engine"]["simulation"] == "false",
+                f"shard {i} statusz: port {s['port']}, engine {s['engine']}")
+        print(f"fleet: {FLEET_SHARDS} shards on udp/{port} (web {webs}), "
+              f"engines on {[s['engine']['device'] for s in sts]}, up and "
+              f"warmed in {time.perf_counter() - t_start:.2f} s", flush=True)
+
+        # The load of phase 6 on the fleet port.
+        base = [_statusz(w) for w in webs]
+        clients = Clients(port, SERVER_CLIENTS)
+        t0 = time.perf_counter() + 0.05
+        clients.start(SERVER_FPS, SERVER_SECONDS, t0)
+        time.sleep(max(t0 + 3.0 - time.perf_counter(), 0))
+        during = [_statusz(w) for w in webs]
+        clients.join()
+        last, still = None, time.perf_counter()
+        while time.perf_counter() - still < 1.0:
+            time.sleep(0.05)
+            now = clients.results()
+            if now != last:
+                last, still = now, time.perf_counter()
+        after = [_statusz(w) for w in webs]
+        sent, results = [c[0] for c in clients.sent], clients.results()
+        shard_rows = []
+        for i, (b0, st) in enumerate(zip(base, after)):
+            d = {k: v - _shard_counts(b0)[k]
+                 for k, v in _shard_counts(st).items()}
+            res, recv, drops = (d["results_sent"], d["frames_received"],
+                                d["dropped"])
+            kdrops = d["rx_overflows"]
+            lat = st["detect_latency"]
+            shard_rows.append(dict(
+                clients=during[i]["clients"], received=recv, results=res,
+                engine_drops=drops, socket_overflows=kdrops,
+                results_per_s=res / SERVER_SECONDS, p50_ms=lat["p50_ms"],
+                p99_ms=lat["p99_ms"],
+                system_udp=st["transport"]["system_udp"]))
+            print(f"fleet shard {i} ({st['engine']['device']}) on "
+                  f"{smi_line}: clients {during[i]['clients']}, received "
+                  f"{recv}, results {res} ({res / SERVER_SECONDS:.1f}/s over "
+                  f"the {SERVER_SECONDS:g} s load), engine drops {drops}, "
+                  f"socket overflows {kdrops} (rcvbuf "
+                  f"{st['transport']['rcvbuf']} B, per-socket count "
+                  f"{st['transport']['rx_overflows_source']}); detect "
+                  f"latency p50 "
+                  f"{lat['p50_ms']:.3f} ms p99 {lat['p99_ms']:.3f} ms "
+                  f"(the shard's window); system_udp "
+                  f"{st['transport']['system_udp']}", flush=True)
+            require(0 <= recv - res - drops <= SERVER_SLACK,
+                    f"shard {i}: received {recv} != results {res} + drops "
+                    f"{drops}")
+        accounted = sum(r["results"] + r["engine_drops"]
+                        + r["socket_overflows"] for r in shard_rows)
+        unaccounted = sum(sent) - accounted
+        print(f"fleet load: {SERVER_CLIENTS} clients x raw "
+              f"{SERVER_FRAME[0]}x{SERVER_FRAME[1]} at {SERVER_FPS:g} fps for "
+              f"{SERVER_SECONDS:g} s: sent {sum(sent)}, results at the "
+              f"clients {sum(results)} (per client {results}), the shards' "
+              f"results + drops {accounted}; unaccounted {unaccounted} "
+              f"(allowed 0..{SERVER_SLACK}); sessions by shard "
+              f"{[r['clients'] for r in shard_rows]}", flush=True)
+        require(all(r > 0 for r in results), f"a client got no results: "
+                                             f"{results}")
+        require(sum(r["clients"] for r in shard_rows) == SERVER_CLIENTS,
+                f"sessions by shard {[r['clients'] for r in shard_rows]}")
+        require(0 <= unaccounted <= SERVER_SLACK,
+                f"{unaccounted} frames unaccounted for on the fleet")
+        clients.stop()
+        out["load"] = dict(sent=sum(sent), results=results,
+                           unaccounted=unaccounted, shards=shard_rows)
+
+        # The shards evict the load's clients before the roll's base is read.
+        deadline = time.perf_counter() + 5.0
+        while time.perf_counter() < deadline and any(
+                st is None or st["clients"] for st in map(_statusz, webs)):
+            time.sleep(0.1)
+
+        # A SIGHUP roll under load.
+        boot = pids()
+        roll = [SimClient(("127.0.0.1", port), screen_width=SERVER_FRAME[0],
+                          screen_height=SERVER_FRAME[1])
+                for _ in range(SERVER_CLIENTS)]
+        for c in roll:
+            c.connect()
+            c.start_receiver()
+        # Each shard process's frame counts, by pid. The boot shards' at the
+        # roll's start are the base (a replacement's is zero). A process's
+        # last count is the one its stop() logs, read once the fleet has
+        # stopped; one that logged none is counted by its last /statusz.
+        snaps, polled, sources = {}, [0.0], {}
+        # The roll's steps as the manager logs them, each with the time
+        # since the SIGHUP and the machine's UDP receive-buffer drops then.
+        timeline, t_hup = [], None
+
+        def read_shards() -> None:
+            for w in webs:
+                st = _statusz(w)
+                if st is not None:
+                    snaps[st["pid"]] = _shard_counts(st)
+                    sources[st["pid"]] = st["transport"]["rx_overflows_source"]
+            polled[0] = time.perf_counter()
+            if t_hup is not None:
+                steps = [ln.split("rolling restart", 1)[1].strip(": ")
+                         for ln in log_tail(None).splitlines()
+                         if "rolling restart" in ln]
+                for step in steps[len(timeline) - 1:]:
+                    timeline.append((round(polled[0] - t_hup, 2), step,
+                                     snmp_counters().get("Udp.RcvbufErrors"),
+                                     _udp_rx_queues(port)))
+
+        read_shards()
+        base = dict(snaps)
+        net0 = net_counters()
+        require(sorted(base) == sorted(boot),
+                f"boot shards {boot}, read at the roll's start {sorted(base)}")
+        stats = [dict(sent=0, skipped=0, rehandshakes=0) for _ in roll]
+        stop = threading.Event()
+        t0 = time.perf_counter() + 0.05
+        threads = [threading.Thread(
+            target=_roll_stream, args=(c, client_frames(i), SERVER_FPS,
+                                       t0 + i / (SERVER_FPS * len(roll)),
+                                       stop, stats[i]), daemon=True)
+            for i, c in enumerate(roll)]
+        for t in threads:
+            t.start()
+        counts = [0] * len(roll)
+        seen = [time.perf_counter()] * len(roll)
+        gaps = [0.0] * len(roll)
+
+        def watch(until: float) -> None:
+            while time.perf_counter() < until:
+                time.sleep(0.01)
+                now = time.perf_counter()
+                for i, c in enumerate(roll):
+                    n = c.results_total
+                    if n != counts[i]:
+                        counts[i], seen[i] = n, now
+                    gaps[i] = max(gaps[i], now - seen[i])
+                if now - polled[0] >= 0.1:
+                    read_shards()
+        try:
+            watch(t0 + 1.0)
+            gaps[:] = [0.0] * len(roll)
+            t_hup = time.perf_counter()
+            timeline.append((0.0, "SIGHUP",
+                             snmp_counters().get("Udp.RcvbufErrors"),
+                             _udp_rx_queues(port)))
+            mgr.send_signal(_signal.SIGHUP)
+            deadline = t_hup + FLEET_SHARDS * FLEET_ROLL_S + 30.0
+            while "rolling restart complete" not in log_tail(20000):
+                require(time.perf_counter() < deadline
+                        and "ABORTED" not in log_tail(20000)
+                        and mgr.poll() is None,
+                        f"the roll did not complete: {log_tail()}")
+                watch(time.perf_counter() + 0.5)
+            roll_s = time.perf_counter() - t_hup
+            before = list(counts)
+            watch(time.perf_counter() + 2.0)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=10)
+        served_after = [c - b for c, b in zip(counts, before)]
+        new = [p for p in pids() if p not in boot]
+        read_shards()
+        final = [_statusz(w) for w in webs]
+        # Stop the fleet with the clients' receivers still running, so that
+        # what the shards send while they stop reaches them too.
+        rc = stop_fleet()
+        deadline = time.perf_counter() + 5.0
+        while time.perf_counter() < deadline:
+            time.sleep(0.2)
+            if sum(c.results_total for c in roll) == sum(counts):
+                break
+            counts = [c.results_total for c in roll]
+        got = sum(c.results_total for c in roll)
+        net1 = net_counters()
+        net = {k: net1[k] - net0[k] for k in net0
+               if k in net1 and k != "lo_mtu"}
+        logged = _stopped_counts(tmp)
+        by_pid = {pid: {k: v - base.get(pid, {}).get(k, 0)
+                        for k, v in logged.get(pid, snaps.get(pid)).items()}
+                  for pid in sorted(set(snaps) | set(logged))}
+        unlogged = sorted(set(snaps) - set(logged))
+        tot = {k: sum(d[k] for d in by_pid.values()) for k in COUNT_KEYS}
+        if sources and None not in sources.values():
+            overflows, where = tot["rx_overflows"], "their sockets' own counts"
+        else:
+            overflows = net.get("Udp.RcvbufErrors", 0)
+            where = ("the machine's Udp.RcvbufErrors over the roll: no socket "
+                     "of a shard counts its own")
+        refused = (tot["dropped"] + tot["cache_rejects"]
+                   + tot["frames_unknown_sender"] + overflows)
+        sent = sum(st["sent"] for st in stats)
+        rehs = sum(st["rehandshakes"] for st in stats)
+        unaccounted = sent - got - refused
+        in_flight = inflight_per_change * 2 * FLEET_SHARDS * len(roll)
+        allowed = in_flight + SERVER_SLACK
+        breakdown = (
+            f"sent {sent}; taken in by the shards {tot['frames_received']}, "
+            f"so not taken in {sent - tot['frames_received']}; results sent "
+            f"by the shards {tot['results_sent']}, at the clients {got}; "
+            f"taken in and neither answered nor counted "
+            f"{tot['frames_received'] - tot['results_sent'] - tot['dropped'] - tot['cache_rejects'] - tot['frames_paused'] - tot['bad_packets']}"
+            f"; the shards' counts {tot}; the machine's UDP and IP drop "
+            f"counters over the roll {net}; by shard process {by_pid}; "
+            f"processes that logged no last count (their last /statusz "
+            f"stands) {unlogged}")
+        print(f"fleet roll (SIGHUP under the load) on {smi_line}: complete "
+              f"in {roll_s:.2f} s, shards respawned as pids {new} (boot "
+              f"{boot}); sent {sent}, results {got}, dropped or refused by "
+              f"the shard processes {refused} (drops {tot['dropped']} + cache "
+              f"rejects {tot['cache_rejects']} + from senders without a "
+              f"session {tot['frames_unknown_sender']} + socket overflows "
+              f"{overflows}, from {where}), "
+              f"re-handshakes {rehs}, frames skipped while re-handshaking "
+              f"{sum(st['skipped'] for st in stats)}; "
+              f"unaccounted {unaccounted} (allowed 0..{allowed}: "
+              f"{inflight_per_change} in flight a client and group change, "
+              f"{2 * FLEET_SHARDS} changes, {len(roll)} clients, + "
+              f"{SERVER_SLACK}); "
+              f"longest gap between two results of a client "
+              f"{max(gaps):.3f} s (per client "
+              f"{[round(g, 3) for g in gaps]}); results per client in the "
+              f"2 s after the roll {served_after}; system_udp "
+              f"{[s['transport']['system_udp'] if s else None for s in final]}",
+              flush=True)
+        print("fleet roll per client: re-handshakes "
+              f"{[st['rehandshakes'] for st in stats]}, drain notices "
+              f"{[sum(1 for k in c.commands if k.command_type == disconnect) for c in roll]}"
+              f", session-loss NAKs {[c.errors_seen for c in roll]}, sent "
+              f"{[st['sent'] for st in stats]}, results "
+              f"{[c.results_total for c in roll]}", flush=True)
+        print(f"fleet roll accounting: {breakdown}", flush=True)
+        print("fleet roll timeline (s after the SIGHUP, step, the machine's "
+              "Udp.RcvbufErrors, bytes queued in each socket of the port): "
+              f"{timeline}", flush=True)
+        for c in roll:
+            try:
+                c.stop()
+            except OSError:
+                pass
+        require(len(new) == FLEET_SHARDS, f"respawned pids {new}")
+        require(all(n > 0 for n in served_after),
+                f"a client was not served after the roll: {served_after}")
+        require(0 <= unaccounted <= allowed,
+                f"{unaccounted} frames unaccounted for across the roll "
+                f"(allowed 0..{allowed}): {breakdown}")
+        out["roll"] = dict(seconds=roll_s, sent=sent, results=got,
+                           rehandshakes=rehs, unaccounted=unaccounted,
+                           gap_s=max(gaps))
+    finally:
+        if clients is not None:
+            clients.stop()
+        rc = stop_fleet()
+    orphans = [p for p in pids() if _alive(p)]
+    for p in orphans:
+        import os as _os
+        _os.kill(p, 9)
+    tail = log_tail()
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    require(rc == 0 and not orphans,
+            f"fleet manager rc {rc}, orphan shards {orphans}: {tail}")
+    print(f"fleet stopped: manager rc {rc}, no shard left", flush=True)
+    return out
+
+
 def main() -> None:
     with Phase("device"):
         import torch
@@ -3078,6 +3829,12 @@ def main() -> None:
     with Phase("train"):
         train = train_phase(torch, smi_line)
 
+    with Phase("mesh"):
+        mesh = mesh_phase(torch, smi_line)
+
+    with Phase("fleet"):
+        fleet_phase(torch, smi_line)
+
     # The int8 conv's own path is the int8 path; every other kernel's is
     # the main path of phase 4.
     launches["conv_int8"] = int8["launches"]["conv_int8"]
@@ -3094,7 +3851,8 @@ def main() -> None:
                       for b in int8["per_step"]},
                    "int8_server_cached": int8["server"][n],
                    "int8_server_profilez": int8["server_profilez"][n],
-                   "train_eval": train["launches"][n]}
+                   "train_eval": train["launches"][n],
+                   "mesh": mesh["launches"][n]}
                for n in KERNELS}
     s640 = ladder["report"]
     print("kernels: " + ", ".join(

@@ -22,7 +22,12 @@ the int8 step's dispatch returns before the device is done. Training on
 the card: bf16 and f32 steps (finite, the loss falls, f32 equal to the CPU
 step), the gradient on every leaf (BN mean and var included), evaluate
 with the kernels against the plain versions, and a checkpoint round trip
-(on the card and onto the CPU, the resumed step bit-equal).
+(on the card and onto the CPU, the resumed step bit-equal). The serving
+mesh on the card: virtual meshes (2x1, 1x2, 2x2) over cuda:0 against the
+single-device engine, hosted and cached; both kernels against their plain
+versions at every channel-sharded shape of yolov8n at 416 and yolov8s at
+640; dispatch on a mesh returns before the device is done; and a real
+two-card mesh, which skips on fewer than two cards.
 
 Needs an NVIDIA GPU and nvcc: marked `cuda` and skipped elsewhere. This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -903,3 +908,168 @@ def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
         for a, b in zip(tree_leaves(state.params) + tree_leaves(state.ema_params),
                         tree_leaves(back.params) + tree_leaves(back.ema_params)):
             assert torch.equal(a.detach(), b.detach())
+
+
+# ----------------------------------------------------------- serving mesh
+
+def _mesh_engine(monkeypatch, data, model, devices=None, dtype="float32"):
+    """_small_engine at batch 8 on a (data, model) mesh: over cuda:0
+    repeated (a virtual mesh) unless `devices` are given."""
+    from zero_latency_yolo_tpu_torch.parallel import mesh as pt_mesh
+    devices = devices or [torch.device("cuda", 0)] * (data * model)
+    monkeypatch.setattr(pt_mesh, "available_devices",
+                        lambda device="cuda": list(devices))
+    eng = _small_engine(dtype, batch_buckets=(8,), mesh_data=data,
+                        mesh_model=model)
+    assert eng.mesh is not None and eng.mesh.shape == {"data": data,
+                                                       "model": model}
+    return eng
+
+
+def _close_dets(got, want, atol):
+    assert [len(r) for r in got] == [len(r) for r in want]
+    diff = 0.0
+    for g, w in zip(got, want):
+        assert [d[0] for d in g] == [d[0] for d in w]
+        if g:
+            diff = max(diff, float(np.abs(np.array(g)[:, 1:]
+                                          - np.array(w)[:, 1:]).max()))
+    print(f"largest difference against the single-device engine: {diff:.3g}")
+    assert diff <= atol
+
+
+@pytest.mark.parametrize("data,model", [(2, 1), (1, 2), (2, 2)])
+def test_virtual_mesh_on_the_card_matches_single_device(dev, monkeypatch,
+                                                        data, model):
+    """f32, hosted and from a slot-sharded cache (its slots on the other
+    data row's shard): counts and classes equal to the single-device
+    engine, boxes and scores within 1e-3 (cuDNN may pick another algorithm
+    at a halved Cout, so the sums may differ in order)."""
+    from zero_latency_yolo_tpu_torch.ops.roi import DeviceFrameCache
+    single = _small_engine("float32", batch_buckets=(8,))
+    single.update_thresholds(confidence=0.1)
+    reqs = _requests(8, seed=6)
+    want = _dets(single.infer_batch(reqs))
+    assert sum(map(len, want)) > 0, "vacuous"
+    eng = _mesh_engine(monkeypatch, data, model)
+    eng.update_thresholds(confidence=0.1)
+    eng.warmup()
+    _close_dets(_dets(eng.infer_batch(_requests(8, seed=6))), want, 1e-3)
+    cache = DeviceFrameCache(8, 96, 128, device="cuda", mesh=eng.mesh)
+    for r in reqs:
+        assert cache.write_keyframe(r.client_id, r.data)
+    ids = [r.client_id for r in reqs]
+    got = eng.complete(_from_cache(eng, cache, _requests(8, seed=6), ids))
+    _close_dets(_dets(got), want, 1e-3)
+    assert eng.error_count.value == 0
+
+
+def _sharded_calls(variant, size, model):
+    """The 1x1 and bias+SiLU calls of one plain bf16 forward at batch 1 on
+    a virtual 1 x `model` mesh over cuda:0: their inputs, at the sharded
+    shapes the mesh gives each kernel."""
+    from zero_latency_yolo_tpu_torch.models import yolov8 as ym
+    from zero_latency_yolo_tpu_torch.models.weights import params_from_jax
+    from zero_latency_yolo_tpu_torch.parallel import mesh as pt_mesh
+    spec = ym.get_spec(variant, 4)
+    mesh = pt_mesh.make_mesh(1, model, [torch.device("cuda", 0)] * model)
+    row = pt_mesh.row_params(mesh, pt_mesh.shard_params(
+        params_from_jax(ym.init_params(0, spec)), mesh, torch.bfloat16), 0)
+    calls = {"conv1x1": [], "bias_silu": []}
+    saved = ym.conv1x1_bias_act_plain, ym.bias_silu_plain
+
+    def rec(name, fn):
+        def f(*args, **kw):
+            calls[name].append((args, kw))
+            return fn(*args, **kw)
+        return f
+    ym.conv1x1_bias_act_plain = rec("conv1x1", saved[0])
+    ym.bias_silu_plain = rec("bias_silu", saved[1])
+    try:
+        x = torch.rand(1, size, size, 3, device="cuda")
+        with torch.inference_mode():
+            ym.forward_decoded(row, spec, x, dtype=torch.bfloat16, plain=True,
+                               conv_fn=ym.tp_conv)
+    finally:
+        ym.conv1x1_bias_act_plain, ym.bias_silu_plain = saved
+    return calls
+
+
+@pytest.mark.parametrize("variant,size", [("yolov8n", 416), ("yolov8s", 640)])
+@pytest.mark.parametrize("model", [2, 4])
+def test_kernels_at_every_sharded_shape(dev, variant, size, model):
+    """Each 1x1 call of the sharded forward (Cout / model, down to 8
+    columns at yolov8n's narrowest C2f cv1 at model 4) on the tensor cores
+    and each bias+SiLU call against their plain versions, in bf16."""
+    calls = _sharded_calls(variant, size, model)
+    couts = set()
+    for (x, w, b), kw in calls["conv1x1"]:
+        act = kw.get("act", True)
+        assert conv1x1_cuda.conv1x1_plan(x, w).route == "wgmma", (
+            tuple(x.shape), tuple(w.shape))
+        couts.add(int(w.shape[1]))
+        torch.testing.assert_close(
+            conv1x1_cuda.conv1x1_bias_act(x, w, b, act),
+            conv1x1_cuda.conv1x1_bias_act_plain(x, w, b, act), **BF16_MM_TOL)
+    for (y, b), _ in calls["bias_silu"]:
+        torch.testing.assert_close(act_cuda.bias_silu(y, b),
+                                   act_cuda.bias_silu_plain(y, b),
+                                   atol=1e-5, rtol=2.0 ** -7)
+    torch.cuda.synchronize()
+    print(f"{variant}@{size} model {model}: {len(calls['conv1x1'])} 1x1 "
+          f"calls (Cout {sorted(couts)}), {len(calls['bias_silu'])} "
+          "bias+SiLU calls")
+    if variant == "yolov8n":
+        assert 32 // model in couts
+
+
+def test_meshed_dispatch_returns_before_the_device_is_done(dev, monkeypatch):
+    """On a virtual 2x2 mesh dispatch copies each row from pinned memory
+    without waiting, and the pending batch's events follow the device."""
+    eng = _mesh_engine(monkeypatch, 2, 2, dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    from zero_latency_yolo_tpu_torch.runtime.engine import InferenceRequest
+    reqs = [InferenceRequest(client_id=i + 1, frame_id=i, timestamp=i,
+                             width=128, height=96,
+                             data=rng.integers(0, 256, (96, 128, 3),
+                                               dtype=np.uint8))
+            for i in range(8)]
+    want = eng.complete(eng.dispatch(reqs))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9))
+    t0 = time.perf_counter()
+    pending = eng.dispatch(reqs)
+    host_s = time.perf_counter() - t0
+    busy = not torch.cuda.current_stream().query()
+    assert not pending.event.query()
+    got = eng.complete(pending)
+    assert busy, f"dispatch returned with the stream idle ({host_s:.3f} s)"
+    assert pending.event.query()
+    assert [len(r.detections) for r in got] == [len(r.detections)
+                                                for r in want]
+
+
+@pytest.mark.parametrize("data,model", [(2, 1), (1, 2)])
+def test_two_card_mesh_matches_single_device(dev, monkeypatch, data, model):
+    """A real mesh over cuda:0 and cuda:1: each kernel launches on a device
+    that is not current (the wrappers enter each tensor's device), the
+    1x1 kernel opts in to its shared memory on each card, and the rows'
+    copies cross the cards; results as the single-device engine's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from zero_latency_yolo_tpu_torch.ops.roi import DeviceFrameCache
+    single = _small_engine("float32", batch_buckets=(8,))
+    single.update_thresholds(confidence=0.1)
+    reqs = _requests(8, seed=7)
+    want = _dets(single.infer_batch(reqs))
+    eng = _mesh_engine(monkeypatch, data, model,
+                       devices=[torch.device("cuda", i) for i in range(2)])
+    eng.update_thresholds(confidence=0.1)
+    assert not eng.mesh.virtual
+    _close_dets(_dets(eng.infer_batch(_requests(8, seed=7))), want, 1e-3)
+    cache = DeviceFrameCache(8, 96, 128, device="cuda", mesh=eng.mesh)
+    for r in reqs:
+        assert cache.write_keyframe(r.client_id, r.data)
+    got = eng.complete(_from_cache(eng, cache, _requests(8, seed=7),
+                                   [r.client_id for r in reqs]))
+    _close_dets(_dets(got), want, 1e-3)

@@ -37,6 +37,15 @@ def test_no_jax_import(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_isolation_covers_the_mesh_and_the_fleet():
+    """The serving mesh (parallel/) and the fleet manager (serve_fleet.py)
+    are among the files the import checks above walk."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {"zero_latency_yolo_tpu_torch/parallel/__init__.py",
+            "zero_latency_yolo_tpu_torch/parallel/mesh.py",
+            "zero_latency_yolo_tpu_torch/serve_fleet.py"} <= names
+
+
 def test_package_imports_with_jax_blocked():
     """Every module of the port imports in a process where `import jax` and
     `import zero_latency_yolo_tpu` fail."""

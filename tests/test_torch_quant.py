@@ -509,11 +509,31 @@ def test_maybe_reload_requantizes_on_the_dispatch_thread(tmp_path):
 
 
 def test_check_supported_refuses_only_the_mesh():
-    pt_engine._check_supported(ServerConfig.from_dict(_engine_cfg()))
+    """The engine's refusal of serving meshes is gone: an int8 config with
+    a mesh constructs. Over a virtual 1x2 device list the int8 blocks stay
+    whole (with their calibrated scales) and the float stem is sharded;
+    with the CPU alone it serves single-device."""
+    from zero_latency_yolo_tpu_torch.parallel import mesh as pt_mesh
+    assert not hasattr(pt_engine, "_check_supported")
+    tree = _tree()
     for extra in ({"mesh_data": 2}, {"mesh_model": 2}):
-        with pytest.raises(ValueError, match="mesh"):
-            pt_engine._check_supported(ServerConfig.from_dict(
-                _engine_cfg(extra)))
+        eng = pt_engine.InferenceEngine(
+            ServerConfig.from_dict(_engine_cfg(extra)), params=tree,
+            device="cpu")
+        assert eng.mesh is None
+    real = pt_mesh.available_devices
+    pt_mesh.available_devices = lambda device="cuda": [torch.device("cpu")] * 2
+    try:
+        eng = pt_engine.InferenceEngine(
+            ServerConfig.from_dict(_engine_cfg({"mesh_model": 2})),
+            params=tree, device="cpu")
+    finally:
+        pt_mesh.available_devices = real
+    assert eng.mesh is not None
+    row = eng._params[0]
+    int8 = [b for _, b in tq.int8_blocks(row)]
+    assert int8 and all("shards" not in b and "x_scale" in b for b in int8)
+    assert "shards" in row["m0"]
 
 
 def test_simulation_engine_turns_int8_off():

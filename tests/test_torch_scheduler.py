@@ -75,6 +75,21 @@ def test_supersede_counts_drops():
     assert b.queue_depth() == 0
 
 
+def test_removed_and_discarded_frames_are_counted_out():
+    """remove_client and discard_pending return the frames they forget, so
+    that the server can count them as drops."""
+    b = _batcher(max_batch=4)
+    for fid in (1, 2, 3):
+        b.submit(_req(1, fid))
+    b.submit(_req(2, 4))
+    b.submit(_req(3, 5))
+    assert b.remove_client(1) == 3
+    assert b.remove_client(1) == 0
+    assert b.queue_depth() == 2
+    assert b.discard_pending() == 2
+    assert b.queue_depth() == 0 and b._collect() == []
+
+
 def test_max_queue_zero_clamped():
     b = _batcher(max_batch=2, max_queue_per_client=0)
     assert b.max_queue == 1

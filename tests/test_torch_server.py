@@ -364,6 +364,77 @@ def test_frame_from_unknown_client_answered_with_nak(harness):
         c.stop()
 
 
+def test_frames_from_unknown_senders_are_counted(harness):
+    """Every frame from a sender without a session is counted as refused
+    (frames_unknown_sender), though the NAK that answers it is
+    rate-limited to one a second."""
+    c = _client(harness.port)  # never connects
+    try:
+        naks = harness.unknown_sender_naks.value
+        refused = harness.frames_unknown_sender.value
+        for seed in range(3):
+            c.send_raw_frame(synthetic_frame(96, 64, seed=seed))
+        assert _poll(lambda: harness.frames_unknown_sender.value
+                     == refused + 3)
+        assert harness.unknown_sender_naks.value == naks + 1
+        st = harness.status()["transport"]
+        assert st["frames_unknown_sender"] == refused + 3
+    finally:
+        c.stop()
+
+
+def test_stop_counts_held_frames_and_logs_its_last_counts(caplog):
+    """Frames a stopping server still holds (queued for the batcher, or for
+    a decode worker) are counted as drops, and stop() logs the process's
+    frame counts as its last line, which a fleet's accounting reads."""
+    import logging
+    server = DetectionServer(sim_config(worker_threads=2), device="cpu")
+    for fid in (1, 2):
+        server.batcher.submit(_frame_request(1, fid))
+    server._decode_queues[0].put_nowait(("__cleanup__", 7))
+    server._decode_queues[1].put_nowait((object(), 3, 0, 96, 64, True,
+                                         b"", None))
+    with caplog.at_level(logging.INFO):
+        asyncio.run(server.stop())
+    assert server.engine.frames_dropped.value == 3
+    assert server.batcher.queue_depth() == 0
+    lines = [r.getMessage() for r in caplog.records
+             if r.getMessage().startswith("server stopped: ")]
+    assert len(lines) == 1
+    counts = json.loads(lines[0][len("server stopped: "):])
+    assert counts == {**server.frame_counts(), "rx_overflows": None}
+    assert counts["pid"] == os.getpid() and counts["dropped"] == 3
+
+
+def test_stop_reads_the_socket_empty_before_closing_it():
+    """stop() waits until the UDP socket holds no datagram before closing
+    it (a datagram queued there at the close would vanish uncounted), and
+    _rx_pending reads the next datagram's size from the socket."""
+    server = DetectionServer(sim_config(), device="cpu")
+    assert server._rx_pending() is None  # no transport
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as rx, \
+            socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+        rx.bind(("127.0.0.1", 0))
+
+        class Transport:  # the native transport's surface stop() reads
+            fd = rx.fileno()
+            rx_overflows = None
+
+            def buffer_sizes(self):
+                return None
+
+            def close(self):
+                pass
+        server._transport = Transport()
+        assert server._rx_pending() == 0
+        tx.sendto(b"x" * 100, rx.getsockname())
+        assert _poll(lambda: server._rx_pending() == 100)
+        reads = iter([100, 100, 0])
+        server._rx_pending = lambda: next(reads)
+        asyncio.run(server.stop())
+        assert next(reads, "empty") == "empty"
+
+
 def test_multi_stream_batching(harness):
     clients = []
     try:

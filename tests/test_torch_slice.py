@@ -180,18 +180,32 @@ def test_engine_dispatch_paths_agree():
 
 
 def test_engine_refuses_unported_options():
-    """Only a serving mesh is refused; int8, the layout switches, the
-    other preprocess modes and a serve-size ladder construct."""
+    """Nothing is refused any more: int8, the layout switches, the other
+    preprocess modes, a serve-size ladder and serving meshes construct.
+    With the CPU alone a mesh serves single-device (its warning); over a
+    virtual device list it is built."""
+    from zero_latency_yolo_tpu_torch.parallel import mesh as pt_mesh
     for extra in ({"stem": "s2d"}, {"select": "perlevel"}, {"c2f": "split"},
                   {"serve_sizes": [32]}, {"preprocess": "letterbox"},
                   {"preprocess": "stretch"}, {"quantize_int8": True}):
         pt_engine.InferenceEngine(ServerConfig.from_dict(_engine_cfg(extra)),
                                   params=_spread_params(0), device="cpu")
     for extra in ({"mesh_data": 2}, {"mesh_model": 2}):
-        with pytest.raises(ValueError, match="not implemented"):
-            pt_engine.InferenceEngine(
+        eng = pt_engine.InferenceEngine(
+            ServerConfig.from_dict(_engine_cfg(extra)),
+            params=_spread_params(0), device="cpu")
+        assert eng.mesh is None and eng.status()["mesh"] == "1x1"
+    real = pt_mesh.available_devices
+    pt_mesh.available_devices = lambda device="cuda": [torch.device("cpu")] * 2
+    try:
+        for extra in ({"mesh_data": 2}, {"mesh_model": 2}):
+            eng = pt_engine.InferenceEngine(
                 ServerConfig.from_dict(_engine_cfg(extra)),
                 params=_spread_params(0), device="cpu")
+            assert eng.mesh is not None and eng.status()["mesh"] == (
+                f"{extra.get('mesh_data', 1)}x{extra.get('mesh_model', 1)}")
+    finally:
+        pt_mesh.available_devices = real
 
 
 def test_engine_simulation_mode_without_model():

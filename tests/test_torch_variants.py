@@ -394,9 +394,10 @@ _EXAMPLES = Path(__file__).resolve().parent.parent / "configs" / "examples"
 @pytest.mark.parametrize("name", sorted(p.name for p in _EXAMPLES.glob(
     "*.json")))
 def test_example_config_boots(name):
-    """Every single-card config of configs/examples/ boots the port's engine
-    on its real weights (not simulation); the two mesh configs are refused
-    for the mesh, the hardened one by the config's placeholder-token
+    """Every config of configs/examples/ boots the port's engine on its
+    real weights (not simulation), the two dp2 mesh configs included: with
+    the CPU alone they serve single-device, reporting the mesh they asked
+    for. The hardened one is refused by the config's placeholder-token
     gate."""
     if name == "server-hardened.json":
         with pytest.raises(ValueError, match="placeholder"):
@@ -404,12 +405,10 @@ def test_example_config_boots(name):
         return
     cfg = ServerConfig.load(str(_EXAMPLES / name), create_if_missing=False)
     cfg.model_path = str(_EXAMPLES.parent.parent / cfg.model_path)
-    if "-dp2" in name:
-        with pytest.raises(ValueError, match="mesh"):
-            pt_engine.InferenceEngine(cfg, device="cpu")
-        return
     eng = pt_engine.InferenceEngine(cfg, device="cpu")
     assert not eng.simulation
+    assert eng.mesh is None and eng.status()["mesh_requested"] == (
+        f"{cfg.tpu.mesh_data}x{cfg.tpu.mesh_model}")
     assert eng.serve_sizes[0] == cfg.detection.model_width
     assert set(eng.serve_sizes) == {cfg.detection.model_width} | {
         int(s) for s in cfg.tpu.serve_sizes}

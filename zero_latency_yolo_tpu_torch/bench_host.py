@@ -51,12 +51,14 @@ BUCKET = (608, 800)
 STAGE, COMPACT = "zlt_nms_and_compact", "zlt_compact"
 
 
-def step_profile(torch, fn, iters: int = 5) -> dict:
+def step_profile(torch, fn, iters: int = 5, nms_stages: int = 1) -> dict:
     """Device time of fn(), one serving step, by kernel (torch.profiler, CUDA
     activity), per step over `iters` steps: `wall_ms`, `busy_ms` (kernels
     and copies), `kernels` (kernel launches, copies and memsets not
     counted), `nms_stage_ms` and `nms_stage_kernels`, and `rows`, one
     (device ms, launches, name) per kernel name, the largest first.
+    `nms_stages`: the NMS stages one call of fn runs (a serving mesh's
+    step runs one a data row); the stage numbers are per call.
 
     The NMS stage is read from the profiler's tree of host ranges: for the
     duration of the profile, `_nms_and_compact` and `_compact_one` of the
@@ -122,8 +124,9 @@ def step_profile(torch, fn, iters: int = 5) -> dict:
         stage_us += sum(k.time_range.end - k.time_range.start for k in ks)
         stage_kernels += len(ks)
         stages += 1
-    if stages != iters:
-        raise RuntimeError(f"step_profile: {stages} NMS stages in {iters} steps")
+    if stages != iters * nms_stages:
+        raise RuntimeError(f"step_profile: {stages} NMS stages in {iters} "
+                           f"steps of {nms_stages}")
     return {"wall_ms": wall, "busy_ms": sum(r[0] for r in rows),
             "kernels": sum(n for _, n, key in rows
                            if not key.startswith(("Memcpy", "Memset"))),

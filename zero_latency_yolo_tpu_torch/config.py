@@ -161,9 +161,9 @@ class AnalyticsConfig:
 @dataclass
 class TpuConfig:
     """Device extras (optional sub-object; absent in old configs). The name
-    stays `tpu` so existing server.json files parse unchanged. The PyTorch
-    engine raises on the values it does not implement (see
-    runtime/engine.py `_check_supported`)."""
+    stays `tpu` so existing server.json files parse unchanged. The TPU
+    kernel switches (nms, act, conv1x1, dot1x1) have no effect in the
+    PyTorch engine (runtime/engine.py)."""
     # Batch-size buckets the engine serves; requests are padded up.
     batch_buckets: tuple = (1, 2, 4, 8, 16, 32, 64)
     # Micro-batch collection window (ms) for continuous batching.

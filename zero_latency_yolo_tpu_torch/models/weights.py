@@ -517,7 +517,8 @@ def params_from_jax(tree: Params) -> Params:
 
 
 def place_params(params: Params, device, dtype: torch.dtype,
-                 c2f_split: bool = False, stem_s2d: bool = False) -> Params:
+                 c2f_split: bool = False, stem_s2d: bool = False,
+                 shard: Optional[Tuple[int, int]] = None) -> Params:
     """Copy device-form params to `device`: kernels in `dtype` (channels-last
     OIHW, so convs write NHWC; a 1x1 matrix K-major, the layout the
     tensor-core 1x1 kernel reads, laid out here once), biases in f32.
@@ -534,9 +535,40 @@ def place_params(params: Params, device, dtype: torch.dtype,
     kx, cin) order, K zero-padded to the MMA's K step
     (`ops/conv_int8_cuda.py` `pack_weight`), with its kernel size `k`; the
     scales and bias f32. It gets no `w_mm` and no split-C2f pieces: its C2f
-    runs the slice form."""
-    def conv(node):
+    runs the slice form.
+    shard: (index, count), this device's part of a tensor-parallel
+    placement over `count` devices (`parallel/mesh.py` `shard_params`):
+    every float conv block that `parallel/mesh.py` `shards_conv` names by
+    its path keeps output channels [index * Cout / count, (index + 1) *
+    Cout / count) of its kernel and bias, and is marked "shard": (index,
+    count). Each slice is its own contiguous copy: a column slice of a
+    K-major 1x1 matrix is not contiguous, and the tensor-core kernel's TMA
+    needs 16-byte rows. The split C2f's pieces are cut from the whole
+    kernels by the same rule on their own Cout, and the s2d stem kernel
+    from m0's slice. int8 blocks stay whole."""
+    from ..parallel.mesh import shards_conv
+
+    def cut(node, path):
+        """The block's slice for this shard (the block itself when whole)."""
+        if shard is None or "w_q" in node:
+            return node
+        index, count = shard
+        cout = int(node["b"].shape[0])
+        if not shards_conv(path, cout, count):
+            return node
+        lo, hi = index * cout // count, (index + 1) * cout // count
+        out = {"b": node["b"][lo:hi], "shard": (index, count)}
+        if "w_mm" in node:
+            out["w_mm"] = node["w_mm"][:, lo:hi]
+        else:
+            out["w"] = node["w"][lo:hi]
+        return out
+
+    def conv(node, path):
+        node = cut(node, path)
         out = {"b": node["b"].to(device=device, dtype=torch.float32)}
+        if "shard" in node:
+            out["shard"] = node["shard"]
         if "w_q" in node:
             out["w_q"] = pack_weight(node["w_q"]).to(device)
             out["k"] = int(node["w_q"].shape[1])
@@ -548,32 +580,36 @@ def place_params(params: Params, device, dtype: torch.dtype,
         else:
             out["w"] = node["w"].to(device=device, dtype=dtype).contiguous(
                 memory_format=torch.channels_last)
+            if stem_s2d and path == "m0":
+                out["w_s2d"] = stem_s2d_weights(out["w"]).contiguous(
+                    memory_format=torch.channels_last)
         return out
 
-    def pieces(node):
+    def pieces(node, path):
         w1, b1 = node["cv1"]["w_mm"], node["cv1"]["b"]
         c = w1.shape[1] // 2
         w2, b2 = node["cv2"]["w_mm"], node["cv2"]["b"]
         zero = torch.zeros_like(b2)
-        return {"cv1_pieces": [conv({"w_mm": w1[:, :c], "b": b1[:c]}),
-                               conv({"w_mm": w1[:, c:], "b": b1[c:]})],
-                "cv2_pieces": [conv({"w_mm": w2[i * c:(i + 1) * c], "b": zero})
-                               for i in range(w2.shape[0] // c)]}
+        return {"cv1_pieces": [
+                    conv({"w_mm": w1[:, :c], "b": b1[:c]},
+                         f"{path}/cv1_pieces/0"),
+                    conv({"w_mm": w1[:, c:], "b": b1[c:]},
+                         f"{path}/cv1_pieces/1")],
+                "cv2_pieces": [
+                    conv({"w_mm": w2[i * c:(i + 1) * c], "b": zero},
+                         f"{path}/cv2_pieces/{i}")
+                    for i in range(w2.shape[0] // c)]}
 
-    def walk(node):
+    def walk(node, path):
         if isinstance(node, list):
-            return [walk(v) for v in node]
+            return [walk(v, f"{path}/{i}") for i, v in enumerate(node)]
         if "b" in node:
-            return conv(node)
-        out = {k: walk(v) for k, v in node.items()}
+            return conv(node, path)
+        out = {k: walk(v, f"{path}/{k}" if path else k)
+               for k, v in node.items()}
         if (c2f_split and "m" in node and "w_q" not in node["cv1"]
                 and "w_mm" in node["cv1"]):
-            out.update(pieces(node))
+            out.update(pieces(node, path))
         return out
 
-    placed = walk(params)
-    if stem_s2d:
-        placed["m0"]["w_s2d"] = stem_s2d_weights(
-            params["m0"]["w"].to(device=device, dtype=dtype)).contiguous(
-                memory_format=torch.channels_last)
-    return placed
+    return walk(params, "")

@@ -20,7 +20,9 @@ functions, names and parameter layout:
   bias, then the bias+SiLU kernel (`ops/act_cuda.py`). `plain=True` routes
   all three through their plain PyTorch versions instead (the reference
   the kernels are checked against). `conv_fn` replaces `_conv` (same
-  signature): the hook activation calibration records through.
+  signature): the hook activation calibration records through, and the
+  one tensor parallelism runs through (`tp_conv`: each channel-sharded
+  block's slices on their devices, gathered along channels).
 - In bf16 the kernels add the bias and apply SiLU in f32 registers and round
   once; the JAX package's bf16 serving path does the tail in bf16.
 - Training (`forward_train_raw`) runs the JAX package's training branch on
@@ -282,6 +284,26 @@ def _conv(p: Params, x: torch.Tensor, stride: int = 1, act: bool = True,
     return (bias_silu_plain if plain else bias_silu)(y, p["b"])
 
 
+def _on_shards(p: Params, x: torch.Tensor, fn) -> torch.Tensor:
+    """A channel-sharded block ({"shards": [...], "b"}, `parallel/mesh.py`
+    `row_params`): fn(shard, x on the shard's device) for each shard, the
+    outputs gathered along channels on x's device in shard order."""
+    ys = [fn(q, x.to(q["b"].device, non_blocking=True)) for q in p["shards"]]
+    return torch.cat([y.to(x.device, non_blocking=True) for y in ys], dim=-1)
+
+
+def tp_conv(p: Params, x: torch.Tensor, stride: int = 1, act: bool = True,
+            plain: bool = False) -> torch.Tensor:
+    """`_conv` under tensor parallelism, the `conv_fn` a serving mesh with
+    model > 1 runs: a channel-sharded block runs each output-channel slice
+    through `_conv` on its own device and gathers the slices along
+    channels; a whole block runs `_conv` as it is."""
+    if "shards" in p:
+        return _on_shards(p, x, lambda q, t: _conv(q, t, stride=stride,
+                                                   act=act, plain=plain))
+    return _conv(p, x, stride=stride, act=act, plain=plain)
+
+
 def _bottleneck(p: Params, x: torch.Tensor, shortcut: bool, cv) -> torch.Tensor:
     y = cv(p["cv2"], cv(p["cv1"], x))
     return x + y if shortcut else y
@@ -367,6 +389,8 @@ def _stem_s2d(p: Params, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
     pad-1 border zeros), then the bias+SiLU kernel. BN-folded params only,
     refused otherwise as the JAX package refuses them (the port folds BN at
     load, so only a hand-built tree can reach the refusal)."""
+    if "shards" in p:
+        return _on_shards(p, x, lambda q, t: _stem_s2d(q, t, plain=plain))
     if "w_q" in p:
         raise ValueError("s2d stem incompatible with quantized m0")
     if "bn" in p or "b" not in p:
@@ -630,20 +654,21 @@ def decode_outputs(spec: ModelSpec, outs: Sequence[torch.Tensor]) -> torch.Tenso
 def forward_decoded(params: Params, spec: ModelSpec, x: torch.Tensor,
                     dtype=torch.float32, plain: bool = False,
                     stem: str = "conv", c2f: str = "slice",
-                    dot1x1: bool = False) -> torch.Tensor:
-    """(B, A, 4+nc) decoded output — the ONNX `output0` equivalent (transposed)."""
+                    dot1x1: bool = False, conv_fn=None) -> torch.Tensor:
+    """(B, A, 4+nc) decoded output — the ONNX `output0` equivalent
+    (transposed). conv_fn: see apply_backbone (`tp_conv` on a mesh)."""
     return decode_outputs(spec, forward_raw(
         params, spec, x, dtype=dtype, plain=plain, stem=stem, c2f=c2f,
-        dot1x1=dot1x1))
+        dot1x1=dot1x1, conv_fn=conv_fn))
 
 
 def forward_decoded_levels(params: Params, spec: ModelSpec, x: torch.Tensor,
                            dtype=torch.float32, plain: bool = False,
                            stem: str = "conv", c2f: str = "slice",
-                           dot1x1: bool = False
+                           dot1x1: bool = False, conv_fn=None
                            ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Level-separated decoded output (boxes_l, probs_l), for the per-level
     candidate selection (ops/nms.postprocess_batch_levels)."""
     return decode_output_levels(spec, forward_raw(
         params, spec, x, dtype=dtype, plain=plain, stem=stem, c2f=c2f,
-        dot1x1=dot1x1))
+        dot1x1=dot1x1, conv_fn=conv_fn))

@@ -29,6 +29,14 @@ bytes in both. The writes are plain PyTorch tensor operations (two
 launches for a flush's keyframes of one shape, one slice copy an ROI): the
 JAX package computes them in XLA, not in a Pallas kernel.
 
+On a serving mesh (`parallel/mesh.py`) the cache shards its slots over the
+mesh's data rows, as the JAX cache shards over the data axis of its
+sharding: `num_slots` rounds up to a multiple of `data`, slot s lives on
+the lead device of data row s // (num_slots / data), and every write goes
+to the shard that owns its slot. The engine's gather copies each batch
+row's frame from whichever shard holds it (`runtime/engine.py`
+`_gather_rows`).
+
 JPEG entropy decode itself stays on the host (runtime/frames.py, cv2).
 """
 
@@ -137,8 +145,10 @@ class _Uploads:
                        out=entry[0].numpy()[:total])
         dev = entry[0][:total].to(self.device, non_blocking=True)
         if self.cuda:
+            # On the stream of the copy: the target device's, which on a
+            # mesh need not be the current device.
             entry[1] = torch.cuda.Event()
-            entry[1].record()
+            entry[1].record(torch.cuda.current_stream(self.device))
         return dev
 
     def _idle(self, nbytes: int) -> list:
@@ -155,24 +165,48 @@ class _Uploads:
         return entry
 
 
+class SlotShards:
+    """The frames of a slot-sharded DeviceFrameCache: `shards[i]`, on data
+    row i's lead device, holds slots [i * per, (i + 1) * per)."""
+
+    def __init__(self, shards: Sequence[torch.Tensor]) -> None:
+        self.shards = list(shards)
+        self.per = int(self.shards[0].shape[0])
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.per * len(self.shards),) + tuple(self.shards[0].shape[1:])
+
+
 class DeviceFrameCache:
     """Fixed-slot device frame store for up to `num_slots` client streams,
-    on `device` ("cuda" unless the caller asks for "cpu"). No `sharding`:
-    the port serves one device."""
+    on `device` ("cuda" unless the caller asks for "cpu"), or with `mesh`
+    (a `parallel.mesh.Mesh`) sharded slot-wise over its data rows' lead
+    devices (num_slots rounds up to a multiple of the data axis)."""
 
     def __init__(self, num_slots: int, height: int, width: int,
-                 device: str = "cuda") -> None:
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+                 device: str = "cuda", mesh=None) -> None:
+        devices = [torch.device(device)] if mesh is None else mesh.leads
+        if any(d.type == "cuda" for d in devices) \
+                and not torch.cuda.is_available():
             raise RuntimeError("DeviceFrameCache(device='cuda'): no CUDA "
                                "device (pass device='cpu' to keep it on the "
                                "CPU)")
+        if mesh is not None:
+            num_slots = -(-num_slots // mesh.data) * mesh.data
         self.num_slots = num_slots
         self.height = height
         self.width = width
-        self._cache = torch.zeros((num_slots, height, width, 3),
-                                  dtype=torch.uint8, device=self.device)
-        self._uploads = _Uploads(self.device)
+        self._per = num_slots // len(devices)
+        self._shards = [torch.zeros((self._per, height, width, 3),
+                                    dtype=torch.uint8, device=d)
+                        for d in devices]
+        # The devices as the tensors report them ("cuda" names its index).
+        self.device = self._shards[0].device
+        # What the engine gathers from: the one tensor, or the shards.
+        self._cache = (self._shards[0] if len(self._shards) == 1
+                       else SlotShards(self._shards))
+        self._uploads = {t.device: _Uploads(t.device) for t in self._shards}
         # Set when a flush failed midway: the cache may hold part of the
         # flush's writes, so the next device touch re-zeroes it and freezes
         # every active slot for keyframe re-anchor (the JAX cache, whose
@@ -369,7 +403,8 @@ class DeviceFrameCache:
         re-anchor with keyframes."""
         if not self._cache_dead:
             return
-        self._cache.zero_()
+        for shard in self._shards:
+            shard.zero_()
         self._freeze_slots_locked(set(self._slot_of.values()))
         self._cache_dead = False
 
@@ -388,13 +423,13 @@ class DeviceFrameCache:
                     by_shape.setdefault(frame.shape[:2], []).append(
                         (slot, frame))
                 for (h, w), group in by_shape.items():
-                    k = len(group)
-                    slots = np.array([s for s, _ in group], np.int64)
-                    dev = self._uploads.upload(
-                        [slots.view(np.uint8)] + [f for _, f in group])
-                    _paste_full_many(self._cache,
-                                     dev[8 * k:].view(k, h, w, 3),
-                                     dev[:8 * k].view(torch.int64))
+                    for shard, local in self._by_shard(group):
+                        k = len(local)
+                        slots = np.array([s for s, _ in local], np.int64)
+                        dev = self._uploads[shard.device].upload(
+                            [slots.view(np.uint8)] + [f for _, f in local])
+                        _paste_full_many(shard, dev[8 * k:].view(k, h, w, 3),
+                                         dev[:8 * k].view(torch.int64))
                 self.flushes += 1
                 self.writes_flushed += len(part)
         # Group pending writes by ROI bucket class BEFORE chunking, as the
@@ -419,15 +454,31 @@ class DeviceFrameCache:
             chunk = min(_KF_CHUNK, self._chunk) if full else self._chunk
             while pending:
                 pend, pending = pending[:chunk], pending[chunk:]
-                dev = self._uploads.upload([p[5] for p in pend])
-                regions, off = [], 0
-                for p in pend:
-                    regions.append(dev[off:off + p[5].size].view(p[5].shape))
-                    off += p[5].size
-                _paste_many(self._cache, regions, [p[:5] for p in pend])
+                # A slot's writes all go to its own shard, in order.
+                for shard, local in self._by_shard(
+                        [(p[0], p) for p in pend]):
+                    dev = self._uploads[shard.device].upload(
+                        [p[5] for _, p in local])
+                    regions, off = [], 0
+                    for _, p in local:
+                        regions.append(dev[off:off + p[5].size].view(
+                            p[5].shape))
+                        off += p[5].size
+                    _paste_many(shard, regions,
+                                [(s,) + p[1:5] for s, p in local])
                 self.flushes += 1
                 self.writes_flushed += len(pend)
         self._pending_bytes = 0
+
+    def _by_shard(self, items):
+        """(shard tensor, [(local slot, item), ...]) for each shard that
+        items [(slot, item), ...] touch, the items' order kept."""
+        groups: Dict[int, list] = {}
+        for slot, item in items:
+            groups.setdefault(slot // self._per, []).append(
+                (slot % self._per, item))
+        return [(self._shards[i], local)
+                for i, local in sorted(groups.items())]
 
     def _clients_for_slots_locked(self, slots) -> list:
         rev = {s: c for c, s in self._slot_of.items()}
@@ -481,21 +532,37 @@ class DeviceFrameCache:
                 np.asarray(ws, np.int32))
 
     def gather(self, client_ids) -> Tuple[torch.Tensor, np.ndarray, np.ndarray]:
-        """Batch device gather: returns (frames (B,H,W,3) on the device, a
-        new tensor; heights; widths)."""
+        """Batch device gather: returns (frames (B,H,W,3) on the (first)
+        device, a new tensor; heights; widths)."""
         with self._lock:
             slots, hs, ws = self._resolve_locked(client_ids)
             self._flush_locked()
-            idx = self._uploads.upload([slots.view(np.uint8)])
-            frames = self._cache.index_select(0, idx.view(torch.int32))
+            if len(self._shards) == 1:
+                idx = self._uploads[self.device].upload([slots.view(np.uint8)])
+                return (self._cache.index_select(0, idx.view(torch.int32)),
+                        hs, ws)
+            frames = torch.empty((len(slots), self.height, self.width, 3),
+                                 dtype=torch.uint8, device=self.device)
+            for shard, local in self._by_shard(
+                    (int(s), i) for i, s in enumerate(slots)):
+                local_slots, pos = np.array(local, np.int64).T.copy()
+                idx = self._uploads[shard.device].upload(
+                    [local_slots.view(np.uint8)]).view(torch.int64)
+                # Read before the next upload: off the card an upload
+                # reuses its buffer at once.
+                part = shard.index_select(0, idx).to(self.device,
+                                                     non_blocking=True)
+                frames.index_copy_(0, self._uploads[self.device].upload(
+                    [pos.view(np.uint8)]).view(torch.int64), part)
         return frames, hs, ws
 
     def dispatch_with(self, fn, client_ids):
         """Run fn(cache, slots, heights, widths) under the cache lock, after
-        the flush. fn should only launch device work, not wait for it: a
-        caller that gathers out of the cache inside fn (a new tensor) can
-        run the step on it after the lock is released — later writes are
-        queued behind that gather on the same stream."""
+        the flush (cache: the tensor, or a sharded cache's SlotShards). fn
+        should only launch device work, not wait for it: a caller that
+        gathers out of the cache inside fn (a new tensor) can run the step
+        on it after the lock is released — later writes are queued behind
+        that gather on the same stream."""
         with self._lock:
             slots, hs, ws = self._resolve_locked(client_ids)
             self._flush_locked()
@@ -509,14 +576,17 @@ class DeviceFrameCache:
         with self._lock:
             self._revive_cache_locked()
             if self._free:
-                self._cache[self._free[0]].zero_()
-            self._uploads.upload([np.zeros((self.height, self.width, 3),
-                                           np.uint8)])
+                slot = self._free[0]
+                self._shards[slot // self._per][slot % self._per].zero_()
+            for uploads in self._uploads.values():
+                uploads.upload([np.zeros((self.height, self.width, 3),
+                                         np.uint8)])
             self.flushes = 0
             self.writes_flushed = 0
 
     def run_locked(self, fn):
-        """Run fn(cache_tensor) under the cache lock, after the flush (e.g.
+        """Run fn(cache) under the cache lock, after the flush (the tensor,
+        or a sharded cache's SlotShards; e.g.
         warmup running the cached step while clients already send
         keyframes). fn should launch device work, not block on results."""
         with self._lock:

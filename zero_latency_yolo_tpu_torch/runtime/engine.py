@@ -42,9 +42,21 @@ int8 weights and static activation scales calibrated on synthetic
 letterboxed samples at construction and at every hot reload, applied on the
 dispatch thread (`_quantize_and_calibrate`); the int8 convs run the int8
 conv kernel (`ops/conv_int8_cuda.py`), the stem and the head stay in the
-engine's dtype. Refused at construction: serving meshes (tpu.mesh_data *
-tpu.mesh_model > 1). The TPU kernel switches tpu.nms / tpu.act /
-tpu.conv1x1 and tpu.dot1x1 have no effect here.
+engine's dtype. The TPU kernel switches tpu.nms / tpu.act / tpu.conv1x1 and
+tpu.dot1x1 have no effect here.
+
+A serving mesh (tpu.mesh_data x tpu.mesh_model > 1, `parallel/mesh.py`) is
+built from `parallel.mesh.available_devices()` as the JAX engine builds
+its: with fewer devices than the mesh the engine logs a warning and serves
+on one device (its own: never the CPU when it was asked for the card), and
+under a mesh the batch buckets that mesh_data does not divide are dropped.
+On the mesh every batch splits into mesh_data rows, each staged
+`non_blocking` onto its row's lead device and stepped there; params are
+placed by `parallel/mesh.py` `shard_params` (conv output channels over the
+model axis, run through `models/yolov8.py` `tp_conv`; int8 blocks whole);
+the rows' packed results are copied into one pinned host buffer, behind
+one event a device. A hot reload re-shards; int8 calibration runs on the
+whole tree before it is sharded, as in the JAX engine.
 
 `create_engine` picks the engine from `config.inference_engine` under the
 JAX package's registry names: "jax" and "onnx" select `InferenceEngine`,
@@ -69,12 +81,14 @@ from ..config import CS16_CLASS_NAMES, ServerConfig
 from ..models.weights import (file_sha256, load_model, params_from_jax,
                               place_params)
 from ..models.yolov8 import (ModelSpec, forward_decoded,
-                             forward_decoded_levels, get_spec)
+                             forward_decoded_levels, get_spec, tp_conv)
 from ..ops import nms as nms_ops
 from ..ops import preprocess as pre_ops
 from ..ops._build import KernelError
 from ..ops.preprocess import letterbox_params
-from ..ops.quant import calibrate_activations, quantize_params
+from ..ops.quant import (calibrate_activations, quantize_params, set_x_scales,
+                         x_scales)
+from ..parallel import mesh as mesh_mod
 from ..protocol import Detection
 from ..utils.logging import get_logger
 from ..utils.stats import Counter, RollingStats
@@ -136,7 +150,9 @@ class PendingBatch:
     # CUDA only: an event recorded on the stream after the step and after
     # the D2H copy of `out` into the pinned buffer `host` (when the copy was
     # started at dispatch: max_inflight <= 2). The event says whether the
-    # batch is done without waiting for it.
+    # batch is done without waiting for it. On a serving mesh `out` is the
+    # list of the data rows' outputs, every row's copy into `host` starts
+    # at dispatch, and `event` is an `_Events` over one event a device.
     event: Optional[Any] = None
     host: Optional[torch.Tensor] = None
     # Synthetic step only: when the fake device step "finishes" (complete()
@@ -160,9 +176,11 @@ class GatheredBatch:
     """A batch gathered out of the device frame cache and not yet stepped
     (InferenceEngine.gather_from_cache): its (B, H, W, 3) frames, a new
     tensor on the device; the device copy of its packed (3, B) int32 slots,
-    heights and widths; and the pinned staging buffer that copy came from."""
-    frames: torch.Tensor
-    shw: torch.Tensor
+    heights and widths; and the pinned staging buffer that copy came from.
+    On a serving mesh `frames` and `shw` are lists, one entry a data row
+    ((B / data, H, W, 3) and (3, B / data), on the row's lead device)."""
+    frames: Any
+    shw: Any
     staging_key: Tuple
     staging_buf: Tuple[torch.Tensor, ...]
     t0: float
@@ -194,6 +212,28 @@ def _pick_bucket(buckets: Sequence[Tuple[int, int]], h: int, w: int
 def _gather(cache: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """The batch's slots out of the frame cache, into a new tensor."""
     return cache.index_select(0, slots)
+
+
+def _row_inputs(frames: Sequence[torch.Tensor], packed: Sequence[torch.Tensor]
+                ) -> List[Tuple[torch.Tensor, ...]]:
+    """(frames, heights, widths) a data row of a serving mesh, from each
+    row's frames and packed int32 rows (heights and widths the last two)."""
+    return [(f, p[-2], p[-1]) for f, p in zip(frames, packed)]
+
+
+class _Events:
+    """The CUDA events of a batch stepped on a serving mesh, one a device:
+    the batch is done when every one has passed."""
+
+    def __init__(self, events: List[Any]) -> None:
+        self.events = events
+
+    def query(self) -> bool:
+        return all(e.query() for e in self.events)
+
+    def synchronize(self) -> None:
+        for e in self.events:
+            e.synchronize()
 
 
 def _pick_batch(buckets: Sequence[int], n: int) -> int:
@@ -249,17 +289,6 @@ def _unstretch(boxes: torch.Tensor, sy: torch.Tensor) -> torch.Tensor:
     return boxes
 
 
-def _check_supported(config: ServerConfig) -> None:
-    """Refuse what the port does not implement yet, at construction."""
-    tpu = config.tpu
-    refused = {
-        "tpu.mesh_data/mesh_model > 1": int(tpu.mesh_data) * int(tpu.mesh_model) > 1,
-    }
-    bad = [name for name, hit in refused.items() if hit]
-    if bad:
-        raise ValueError(f"not implemented in the PyTorch port: {', '.join(bad)}")
-
-
 class InferenceEngine:
     """Synchronous batched compute wrapper; the caller owns queues/threads.
 
@@ -277,7 +306,6 @@ class InferenceEngine:
     def __init__(self, config: ServerConfig,
                  params: Optional[Dict[str, Any]] = None,
                  device: str = "cuda") -> None:
-        _check_supported(config)
         self.config = config
         tpu = config.tpu
         self.device = torch.device(device)
@@ -379,10 +407,34 @@ class InferenceEngine:
         # When the previous fake step finishes: fake steps queue one after
         # another like the real device lane.
         self._synthetic_last_ready = 0.0
+        # Serving mesh (tpu.mesh_data x tpu.mesh_model > 1): batch rows over
+        # "data", conv output channels over "model". Not in simulation,
+        # which never touches a device.
+        self.mesh: Optional[mesh_mod.Mesh] = None
+        md, mm = int(tpu.mesh_data), int(tpu.mesh_model)
+        self.mesh_requested = (md, mm)
+        if md * mm > 1 and not self.simulation:
+            devices = mesh_mod.available_devices(self.device)
+            if len(devices) >= md * mm:
+                self.mesh = mesh_mod.make_mesh(md, mm, devices[:md * mm])
+                self.device = self.mesh.leads[0]
+                log.info("serving mesh active: data=%d model=%d (%s)", md, mm,
+                         self.mesh.describe())
+            else:
+                log.warning("tpu.mesh %dx%d needs %d devices, have %d — "
+                            "single-device serving on %s", md, mm, md * mm,
+                            len(devices), self.device)
+        if self.mesh is not None:
+            # Batch buckets must divide evenly over the data axis.
+            kept = tuple(b for b in self.batch_buckets if b % md == 0)
+            if kept != self.batch_buckets:
+                log.warning("batch buckets %s -> %s (multiples of data=%d)",
+                            self.batch_buckets, kept or (md,), md)
+            self.batch_buckets = kept or (md,)
         # Simulation never touches the device.
         self._params = None if self.simulation else self._device_params(
             self._host_params(params))
-        self._class_weights = self._class_weight_tensor()
+        self._set_class_weights()
         # A hot reload staged by maybe_reload (host tensors, and the file's
         # geometry when leaving simulation), applied by the dispatch thread.
         self._staged: Optional[Tuple[Any, Optional[ModelSpec]]] = None
@@ -408,28 +460,45 @@ class InferenceEngine:
         self._rng = random.Random(1337)
         self.warmed = self.simulation
 
-    def _class_weight_tensor(self) -> torch.Tensor:
+    def _set_class_weights(self) -> None:
+        """The class weights on the device, and on each data row's lead
+        device (`_row_class_weights`; the one device off a mesh)."""
         nc = self.spec.num_classes
         names = CS16_CLASS_NAMES if nc == len(CS16_CLASS_NAMES) else tuple(
             f"class_{i}" for i in range(nc))
-        return torch.tensor(
+        self._class_weights = torch.tensor(
             self.config.detection.class_weight_vector(names),
             dtype=torch.float32,
             device=None if self.simulation else self.device)
+        self._row_class_weights = (
+            [self._class_weights.to(d) for d in self.mesh.leads]
+            if self.mesh is not None else [self._class_weights])
 
     def _c2f_form(self, batch: int, size: int) -> str:
         tpu = self.config.tpu
         return resolve_c2f(tpu.c2f, batch, variant=tpu.variant, size=size,
                            dtype=tpu.dtype)
 
+    def _place_kw(self) -> Dict[str, bool]:
+        """The layouts `place_params` adds: the split C2f's weight pieces
+        when some (batch bucket, rung) runs that form, the space-to-depth
+        stem kernel when tpu.stem="s2d"."""
+        return dict(c2f_split=any(self._c2f_form(b, s) == "split"
+                                  for b in self.batch_buckets
+                                  for s in self.serve_sizes),
+                    stem_s2d=self.config.tpu.stem == "s2d")
+
     def _place(self, params):
-        """Device placement of device-form params, with the split C2f's
-        weight pieces when some (batch bucket, rung) runs that form and the
-        space-to-depth stem kernel when tpu.stem="s2d"."""
-        split = any(self._c2f_form(b, s) == "split"
-                    for b in self.batch_buckets for s in self.serve_sizes)
-        return place_params(params, self.device, self.dtype, c2f_split=split,
-                            stem_s2d=self.config.tpu.stem == "s2d")
+        """Device placement of device-form params: one placed tree, or on
+        a serving mesh one tree a data row (`parallel/mesh.py`
+        `shard_params` and `row_params`: the tensor-parallel layout)."""
+        if self.mesh is None:
+            return place_params(params, self.device, self.dtype,
+                                **self._place_kw())
+        trees = mesh_mod.shard_params(params, self.mesh, self.dtype,
+                                      **self._place_kw())
+        return [mesh_mod.row_params(self.mesh, trees, r)
+                for r in range(self.mesh.data)]
 
     def _host_params(self, tree):
         """What a loaded NumPy tree is staged as (any thread, host work
@@ -452,7 +521,11 @@ class InferenceEngine:
         calibration that fails leaves dynamic quant, as in the JAX engine,
         except where a kernel failed to build or launch, or the device
         faulted: that raises, since the step would fail too."""
-        placed = self._place(params_from_jax(quantize_params(tree)))
+        quantized = params_from_jax(quantize_params(tree))
+        # Calibrated whole on the (first) device; on a mesh the scales are
+        # then carried onto the sharded placement.
+        placed = place_params(quantized, self.device, self.dtype,
+                              **self._place_kw())
         rng = np.random.default_rng(0)
         sample = (rng.uniform(0.0, 1.0, (2, self.model_size, self.model_size, 3))
                   .astype(np.float32))
@@ -470,7 +543,14 @@ class InferenceEngine:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)  # a device fault raises
             log.exception("activation calibration failed; dynamic quant")
-        return placed
+        if self.mesh is None:
+            return placed
+        scales = x_scales(placed)
+        rows = self._place(quantized)
+        for row in rows:
+            if scales:
+                set_x_scales(row, scales)
+        return rows
 
     # ---------------------------------------------------------------- step
     def _build_step(self, batch: int, size: Optional[int] = None,
@@ -484,13 +564,17 @@ class InferenceEngine:
         `plain=True` runs every kernel's plain PyTorch version instead (the
         reference a run checks the kernels against). An f32 step runs its
         convs and matmuls in full f32 whatever the caller's TF32 settings
-        (`full_f32_precision`)."""
+        (`full_f32_precision`). On a serving mesh the step of the batch
+        bucket runs on each data row's B / data rows and params, with
+        `tp_conv` when the model axis shards channels."""
         size = int(size or self.model_size)
         spec, dtype, topk = self.spec, self.dtype, self.pre_nms_topk
         tpu = self.config.tpu
         mode, stem, select = tpu.preprocess, tpu.stem, tpu.select
+        tensor_parallel = self.mesh is not None and self.mesh.model > 1
         model_kw = dict(dtype=dtype, plain=plain, stem=stem,
-                        c2f=self._c2f_form(batch, size), dot1x1=tpu.dot1x1)
+                        c2f=self._c2f_form(batch, size), dot1x1=tpu.dot1x1,
+                        conv_fn=tp_conv if tensor_parallel else None)
         if stem == "s2d":
             if not mode.startswith("letterbox"):
                 raise ValueError("stem='s2d' requires a letterbox preprocess")
@@ -581,11 +665,40 @@ class InferenceEngine:
     def _step(self, size: int, params, frames: torch.Tensor, heights,
               widths, class_w, conf, iou) -> torch.Tensor:
         """Run the step of (len(frames), size) on a staged or gathered batch:
-        every dispatch path launches its step here."""
+        every dispatch path off a mesh launches its step here."""
         return self.get_step(int(frames.shape[0]),
                              (int(frames.shape[1]), int(frames.shape[2])),
                              size)(params, frames, heights, widths, class_w,
                                    conf, iou)
+
+    def _step_rows(self, size: int, batch: int, params,
+                   rows: Sequence[Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]]) -> List[torch.Tensor]:
+        """The step of (batch, size) on each data row of a serving mesh:
+        rows[r] = (frames, heights, widths) of row r on its lead device,
+        params[r] its placed tree; every dispatch path on a mesh launches
+        its steps here. Returns each row's packed output."""
+        f0 = rows[0][0]
+        step = self.get_step(batch, (int(f0.shape[1]), int(f0.shape[2])),
+                             size)
+        conf, iou = self.config.confidence_threshold, self.config.nms_threshold
+        return [step(params[r], f, h, w, self._row_class_weights[r], conf, iou)
+                for r, (f, h, w) in enumerate(rows)]
+
+    def _to_rows(self, frames: torch.Tensor, shw: torch.Tensor
+                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """A batch's frames (B, H, W, 3) and packed (k, B) int32 rows split
+        over the mesh's data rows: each row's frames copied `non_blocking`
+        onto its lead device (from pinned memory, or from another device),
+        the packed rows once onto each distinct lead. Returns (each row's
+        frames, each row's (k, B / data) packed rows)."""
+        packed = {d: shw.to(d, non_blocking=True)
+                  for d in dict.fromkeys(self.mesh.leads)}
+        spans = mesh_mod.batch_rows(self.mesh, int(frames.shape[0]))
+        return ([frames[sl].to(lead, non_blocking=True)
+                 for sl, lead in zip(spans, self.mesh.leads)],
+                [packed[lead][:, sl]
+                 for sl, lead in zip(spans, self.mesh.leads)])
 
     def warmup(self, batches: Optional[Sequence[int]] = None,
                buckets: Optional[Sequence[Tuple[int, int]]] = None,
@@ -610,13 +723,18 @@ class InferenceEngine:
                 for bk in (buckets or self.frame_buckets):
                     frames = torch.zeros((b, bk[0], bk[1], 3), dtype=torch.uint8,
                                          device=self.device)
-                    hs = torch.full((b,), bk[0], dtype=torch.int32,
-                                    device=self.device)
-                    ws = torch.full((b,), bk[1], dtype=torch.int32,
-                                    device=self.device)
+                    hw = torch.tensor([[bk[0]], [bk[1]]], dtype=torch.int32,
+                                      device=self.device).repeat(1, b)
                     for sz in warm_sizes:
+                        if self.mesh is not None:
+                            for out in self._step_rows(
+                                    sz, b, self._params,
+                                    _row_inputs(*self._to_rows(frames, hw))):
+                                out.cpu()
+                            continue
                         self.get_step(b, bk, sz)(
-                            self._params, frames, hs, ws, self._class_weights,
+                            self._params, frames, hw[0], hw[1],
+                            self._class_weights,
                             self.config.confidence_threshold,
                             self.config.nms_threshold).cpu()
         if cache is not None:
@@ -626,8 +744,21 @@ class InferenceEngine:
                       else (lambda fn, _c=cache: fn(_c)))
             for b in ((batches or self.batch_buckets)
                       if not self.simulation else ()):
-                def launch(arr, b=b):
+                held: List[GatheredBatch] = []
+
+                def launch(arr, b=b, held=held):
                     bucket = (int(arr.shape[1]), int(arr.shape[2]))
+                    if self.mesh is not None:
+                        outs = []
+                        for sz in warm_sizes:
+                            g = self.gather_from_cache(
+                                arr, np.zeros(b, np.int32),
+                                np.full(b, bucket[0]), np.full(b, bucket[1]))
+                            held.append(g)
+                            outs += self._step_rows(
+                                sz, b, self._params,
+                                _row_inputs(g.frames, g.shw))
+                        return outs
                     shw = torch.zeros((3, b), dtype=torch.int32)
                     shw[1], shw[2] = bucket
                     shw = shw.to(self.device)
@@ -637,6 +768,7 @@ class InferenceEngine:
                         self.config.nms_threshold) for sz in warm_sizes]
                 for out in locked(launch):
                     out.cpu()
+                self.recycle_staging(held)
         self.warmed = True
         dt = time.perf_counter() - t0
         full_grid = (
@@ -765,7 +897,7 @@ class InferenceEngine:
             if spec is not None:
                 self.spec = spec
                 self._step_cache.clear()
-            self._class_weights = self._class_weight_tensor()
+            self._set_class_weights()
             self._params = self._device_params(params)
             log.info("hot-reload applied on the dispatch thread")
         return self._params
@@ -870,6 +1002,11 @@ class InferenceEngine:
             host[i, :r.height, :r.width] = r.data
             hw[:, i] = (r.height, r.width)
         params = self._current_params()
+        if self.mesh is not None:
+            outs = self._step_rows(size, batch, params,
+                                   _row_inputs(*self._to_rows(frames, shw)))
+            return self._launched(requests, outs, t0, key, (frames, shw),
+                                  size)
         frames_d = frames.to(self.device, non_blocking=True)
         shw_d = shw.to(self.device, non_blocking=True)
         out = self._step(size, params, frames_d, shw_d[0], shw_d[1],
@@ -887,14 +1024,34 @@ class InferenceEngine:
                              f"{self.serve_sizes}")
         return int(size)
 
-    def _launched(self, requests: List[InferenceRequest], out: torch.Tensor,
+    def _launched(self, requests: List[InferenceRequest], out,
                   t0: float, staging_key: Tuple,
                   staging_buf: Tuple[torch.Tensor, ...],
                   size: int) -> PendingBatch:
         """The PendingBatch of a step just launched; on CUDA its result's
-        D2H copy is started and an event recorded behind it."""
+        D2H copy is started and an event recorded behind it. On a serving
+        mesh `out` is the list of the data rows' outputs: on CUDA each row
+        is copied into its rows of one pinned output, at every depth, and
+        one event recorded on each device behind its copies; on the CPU the
+        rows are concatenated."""
         event = host = None
-        if out.is_cuda:
+        if isinstance(out, list):
+            if not out[0].is_cuda:
+                out = torch.cat(out)
+            else:
+                host = torch.empty((sum(int(o.shape[0]) for o in out),)
+                                   + tuple(out[0].shape[1:]),
+                                   dtype=out[0].dtype, pin_memory=True)
+                row = 0
+                for o in out:
+                    host[row:row + o.shape[0]].copy_(o, non_blocking=True)
+                    row += int(o.shape[0])
+                events = []
+                for d in dict.fromkeys(o.device for o in out):
+                    events.append(torch.cuda.Event())
+                    events[-1].record(torch.cuda.current_stream(d))
+                event = _Events(events)
+        elif out.is_cuda:
             # Start the result's D2H copy now, so complete() finds it on the
             # host; only at depth <= 2, where complete() reads each batch
             # (deeper, complete_many reads several in one copy). The event
@@ -951,6 +1108,11 @@ class InferenceEngine:
         key, buf, shw_d = self._stage_shw(
             batch, (0, np.asarray(heights, np.int32),
                     np.asarray(widths, np.int32)))
+        if self.mesh is not None:
+            rows, packed = self._to_rows(frames, shw_d)
+            return self.dispatch_gathered(requests, GatheredBatch(
+                frames=rows, shw=packed, staging_key=key, staging_buf=buf,
+                t0=t0))
         return self.dispatch_gathered(requests, GatheredBatch(
             frames=frames, shw=shw_d, staging_key=key, staging_buf=buf,
             t0=t0))
@@ -973,11 +1135,74 @@ class InferenceEngine:
                 f"dispatch_from_cache batch={batch} is not a configured "
                 f"batch bucket {self.batch_buckets} — pad the slot list "
                 "to a bucket first")
+        if self.mesh is not None:
+            return self._gather_rows(cache, slots, heights, widths, t0)
         key, buf, shw_d = self._stage_shw(batch, (
             np.asarray(slots, np.int32), np.asarray(heights, np.int32),
             np.asarray(widths, np.int32)))
         return GatheredBatch(frames=_gather(cache, shw_d[0]), shw=shw_d,
                              staging_key=key, staging_buf=buf, t0=t0)
+
+    def _gather_rows(self, cache, slots: np.ndarray, heights: np.ndarray,
+                     widths: np.ndarray, t0: float) -> GatheredBatch:
+        """gather_from_cache on a serving mesh. `cache` is a slot-sharded
+        cache's `SlotShards` (`ops/roi.py`; shard i holds slots [i * per,
+        (i + 1) * per) on its device) or one tensor (one shard). Each data
+        row's frames are gathered onto its lead device from whichever shard
+        holds each slot (the batcher places clients freely): one
+        index_select a (row, shard) pair, copied to the lead, and with more
+        than one shard in a row put in place by index_copy_. The packed (3,
+        B) int32 rows and, in int64, the gather's [local slot, position in
+        the row] pairs grouped by (row, shard) come from one pinned staging
+        pair, uploaded once to each device that reads them."""
+        shards = list(getattr(cache, "shards", [cache]))
+        per = int(shards[0].shape[0])
+        slots = np.asarray(slots, np.int64)
+        batch = len(slots)
+        key = ("gather_rows", batch)
+        free = self._staging.setdefault(key, [])
+        pin = self.device.type == "cuda"
+        shw, idx = free.pop() if free else (
+            torch.empty((3, batch), dtype=torch.int32, pin_memory=pin),
+            torch.empty((2, batch), dtype=torch.int64, pin_memory=pin))
+        hw, ix = shw.numpy(), idx.numpy()
+        hw[0], hw[1], hw[2] = slots, heights, widths
+        spans = mesh_mod.batch_rows(self.mesh, batch)
+        groups: List[List[Tuple[int, int, int]]] = []  # per row: (shard, a, b)
+        n = 0
+        for sl in spans:
+            pos = np.arange(sl.start, sl.stop)
+            owner = slots[sl] // per
+            groups.append([])
+            for s in np.unique(owner):
+                sel = pos[owner == s]
+                ix[0, n:n + len(sel)] = slots[sel] - s * per
+                ix[1, n:n + len(sel)] = sel - sl.start
+                groups[-1].append((int(s), n, n + len(sel)))
+                n += len(sel)
+        leads = self.mesh.leads
+        shw_on = {d: shw.to(d, non_blocking=True)
+                  for d in dict.fromkeys(leads)}
+        idx_on = {d: idx.to(d, non_blocking=True) for d in dict.fromkeys(
+            leads + [t.device for t in shards])}
+        frames_rows = []
+        for sl, lead, mine in zip(spans, leads, groups):
+            def part(s, a, b):
+                src = shards[s]
+                return src.index_select(0, idx_on[src.device][0, a:b]).to(
+                    lead, non_blocking=True)
+            if len(mine) == 1:
+                frames_rows.append(part(*mine[0]))
+                continue
+            f = torch.empty((sl.stop - sl.start,) + tuple(shards[0].shape[1:]),
+                            dtype=shards[0].dtype, device=lead)
+            for s, a, b in mine:
+                f.index_copy_(0, idx_on[lead][1, a:b], part(s, a, b))
+            frames_rows.append(f)
+        return GatheredBatch(frames=frames_rows,
+                             shw=[shw_on[lead][:, sl]
+                                  for sl, lead in zip(spans, leads)],
+                             staging_key=key, staging_buf=(shw, idx), t0=t0)
 
     def dispatch_gathered(self, requests: List[InferenceRequest],
                           gathered: Optional[GatheredBatch],
@@ -989,6 +1214,14 @@ class InferenceEngine:
         size = self._rung(size)
         if gathered is None or self._simulating():
             return self._sim_pending(requests, size)
+        if self.mesh is not None:
+            rows = _row_inputs(gathered.frames, gathered.shw)
+            outs = self._step_rows(
+                size, sum(int(f.shape[0]) for f, _, _ in rows),
+                self._current_params(), rows)
+            return self._launched(requests, outs, gathered.t0,
+                                  gathered.staging_key, gathered.staging_buf,
+                                  size)
         out = self._step(size, self._current_params(), gathered.frames,
                          gathered.shw[1], gathered.shw[2],
                          self._class_weights, self.config.confidence_threshold,
@@ -1259,6 +1492,17 @@ class InferenceEngine:
             "size_downshifts": str(self.size_downshifts),
             "size_upshifts": str(self.size_upshifts),
             "classes": str(self.spec.num_classes),
+            # The serving mesh in use (1x1: one device), the one configured
+            # (tpu.mesh_data x tpu.mesh_model), its devices and whether a
+            # device repeats in it.
+            "mesh": (f"{self.mesh.data}x{self.mesh.model}"
+                     if self.mesh is not None else "1x1"),
+            "mesh_requested": "x".join(map(str, self.mesh_requested)),
+            "mesh_devices": ",".join(
+                str(d) for d in (self.mesh.flat if self.mesh is not None
+                                 else [self.device])),
+            "mesh_virtual": str(self.mesh is not None
+                                and self.mesh.virtual).lower(),
             "simulation": str(self.simulation).lower(),
             "inferences": str(self.inference_count.value),
             "dropped": str(self.frames_dropped.value),

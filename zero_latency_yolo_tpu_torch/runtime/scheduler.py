@@ -118,11 +118,21 @@ class ContinuousBatcher:
             self.engine.frames_dropped.inc()
         return not dropped
 
-    def remove_client(self, client_id: int) -> None:
+    def remove_client(self, client_id: int) -> int:
+        """Forget a client's queued frames; returns how many there were."""
         with self._cv:
             q = self._queues.pop(client_id, None)
             if q:
                 self._pending -= len(q)
+            return len(q) if q else 0
+
+    def discard_pending(self) -> int:
+        """Forget every queued frame (the server is stopping); returns how
+        many there were."""
+        with self._cv:
+            n, self._pending = self._pending, 0
+            self._queues.clear()
+            return n
 
     def queue_depth(self) -> int:
         with self._cv:

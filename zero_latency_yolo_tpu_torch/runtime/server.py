@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
 import socket
 import time
 from collections import deque
@@ -75,6 +76,9 @@ log = get_logger("server")
 # Monitor-loop warning threshold for a device lane that stopped completing
 # batches (see ContinuousBatcher.device_stall_s).
 DEVICE_STALL_WARN_S = 5.0
+# The longest stop() waits for its UDP socket to be read empty before it
+# closes it (a client that never got the drain notice keeps it busy).
+SOCKET_DRAIN_S = 5.0
 
 Addr = Tuple[str, int]
 
@@ -98,6 +102,12 @@ def udp_kernel_drops(port: Optional[int]) -> Optional[int]:
                 total += int(fields[12])
                 found = True
     return total if found else None
+
+
+def _is_frame(item) -> bool:
+    """Whether a decode-queue item is a frame (not a worker's stop sentinel
+    or a cleanup / release marker)."""
+    return item is not None and not isinstance(item[0], str)
 
 
 @dataclass
@@ -226,7 +236,8 @@ class DetectionServer:
         max_w = max(b[1] for b in config.tpu.frame_buckets)
         self.device_cache = (
             DeviceFrameCache(config.max_clients, max_h, max_w,
-                             device=str(self.engine.device))
+                             device=str(self.engine.device),
+                             mesh=getattr(self.engine, "mesh", None))
             if use_device_cache else None)
 
         self.batcher = ContinuousBatcher(
@@ -315,6 +326,9 @@ class DetectionServer:
         self._cache_reject_log_at = 0.0  # rate limit for the warning
         self.frames_paused = Counter()  # frames shed at ingest while paused
         self.unknown_sender_naks = Counter()  # ERRORs to sessionless senders
+        # FRAME_DATA from senders with no session, refused (the NAK that
+        # answers them is rate-limited, so this counts every such frame).
+        self.frames_unknown_sender = Counter()
         self._unknown_nak: Dict[Addr, float] = {}  # per-addr NAK rate limit
         self._nak_prune_at = 0.0  # full-table prune throttle (flood posture)
         self._draining = False  # stop() in progress: refuse new handshakes
@@ -493,8 +507,11 @@ class DetectionServer:
                 except (asyncio.CancelledError, Exception):  # noqa: BLE001
                     pass
         self.batcher.stop()
+        # The batches it drained handed their results to this loop: send
+        # them while the transport is open.
+        await asyncio.sleep(0)
+        import queue as _queue
         if self._decode_threads:
-            import queue as _queue
             for q in self._decode_queues:
                 # Never block the event loop on a full decode queue (a
                 # worker can be slow and the drain thread keeps refilling):
@@ -506,7 +523,8 @@ class DetectionServer:
                         break
                     except _queue.Full:
                         try:
-                            q.get_nowait()
+                            if _is_frame(q.get_nowait()):
+                                self.engine.frames_dropped.inc()
                         except _queue.Empty:
                             pass
             for t in self._decode_threads:
@@ -515,9 +533,35 @@ class DetectionServer:
         if self._http_server:
             self._http_server.close()
             await self._http_server.wait_closed()
+        # Read the socket empty before closing it: a datagram still queued
+        # there at the close is freed without any count. The clients have
+        # the drain notice, so their frames stop; what was queued is read
+        # now and, with the batcher and the decode workers stopped, counted
+        # as dropped below.
+        deadline = time.monotonic() + SOCKET_DRAIN_S
+        while self._rx_pending() and time.monotonic() < deadline:
+            await asyncio.sleep(0.01)
+        rx_overflows = self.socket_stats()["rx_overflows"]
         if self._transport:
             self._transport.close()
             self._transport = None
+        # Frames still held (queued for a decode worker that has exited, or
+        # for the stopped batcher) will never be served: count them as drops,
+        # so that every frame this process took in is accounted for.
+        left = self.batcher.discard_pending()
+        for q in self._decode_queues:
+            items = []
+            while True:
+                try:
+                    items.append(q.get_nowait())
+                except _queue.Empty:
+                    break
+            left += sum(map(_is_frame, items))
+            if None in items:  # a worker still running keeps its sentinel
+                q.put_nowait(None)
+        self.engine.frames_dropped.inc(left)
+        log.info("server stopped: %s", json.dumps(
+            {**self.frame_counts(), "rx_overflows": rx_overflows}))
         if self._capture is not None:
             self._capture.stop()
         # gc.callbacks is process-global: leaving the hook installed across
@@ -663,6 +707,7 @@ class DetectionServer:
                 self._nak_unknown_sender(addr)
         elif ptype == PacketType.FRAME_DATA:
             if session is None:
+                self.frames_unknown_sender.inc()
                 self._nak_unknown_sender(addr)
                 return
             self._handle_frame(pkt, session)
@@ -687,6 +732,7 @@ class DetectionServer:
                 native.build_ack(sequence, next_sequence(), now_ms()), addr)
         if ntype == PacketType.FRAME_DATA:
             if session is None:
+                self.frames_unknown_sender.inc()
                 self._nak_unknown_sender(addr)
                 return
             parsed = native.parse_frame_header(data)
@@ -1073,7 +1119,7 @@ class DetectionServer:
                            keyframe, payload, recv_t)
 
     def _cleanup_client(self, client_id: int) -> None:
-        self.batcher.remove_client(client_id)
+        self.engine.frames_dropped.inc(self.batcher.remove_client(client_id))
         if self.device_cache is not None:
             self.device_cache.release(client_id)
         if self._capture is not None:
@@ -1093,7 +1139,7 @@ class DetectionServer:
             # call_later breaks FIFO ordering) must not free the resumed
             # stream's fresh keyframe slot or reset its tracker.
             return
-        self.batcher.remove_client(client_id)
+        self.engine.frames_dropped.inc(self.batcher.remove_client(client_id))
         if self.device_cache is not None:
             self.device_cache.release(client_id)
         self.adapter.reset_client(client_id)
@@ -1122,7 +1168,9 @@ class DetectionServer:
                       keyframe: bool, payload: bytes,
                       recv_t: Optional[float] = None) -> None:
         if self._sessions.get(session.client_id) is not session:
-            return  # evicted while queued; don't waste the decode
+            # Evicted while queued: don't waste the decode.
+            self.engine.frames_dropped.inc()
+            return
         # Oversized-frame shed BEFORE decode, not at dispatch: the header's
         # u16 dims license the JPEG decoder's allocation (frames.py SOF
         # guard), so a 30000x30000 claim must be rejected while it is
@@ -1161,6 +1209,7 @@ class DetectionServer:
                     # cadence — rate-limited like the shed path.
                     log.debug("ROI before keyframe (client %d); dropped",
                               session.client_id)
+                    self.engine.frames_dropped.inc()
                     if self._loop is not None:
                         self._loop.call_soon_threadsafe(
                             self._send_keyframe_requests,
@@ -1186,6 +1235,7 @@ class DetectionServer:
         else:
             if decoded.roi is not None:
                 log.debug("ROI update without device cache; dropped")
+                self.engine.frames_dropped.inc()
                 return
             request.data = decoded.pixels
         if self._capture is not None and decoded.roi is None:
@@ -1291,9 +1341,11 @@ class DetectionServer:
         recvs: List[Optional[float]] = []
         fallback_lat: List[float] = []
         sampled: List = []  # (EngineResult, n_dets) picked for /debugz
+        gone = 0  # results of clients evicted meanwhile: their frames drop
         for res in results:
             session = self._sessions.get(res.client_id)
             if session is None:
+                gone += 1
                 continue
             if self._capture is not None:
                 # Pre-adapter: the model's own boxes, before domain shaping
@@ -1324,6 +1376,8 @@ class DetectionServer:
                     sampled.append((res, len(dets)))
             session.results_sent += 1
             EVENT_BUS.publish(INFERENCE_COMPLETED, res.client_id)
+        if gone:
+            self.engine.frames_dropped.inc(gone)
         if not burst:
             return
         self.results_sent.inc(len(burst))
@@ -1685,10 +1739,44 @@ class DetectionServer:
             self._recovering = False
 
     # =============================================================== status
+    def _rx_pending(self) -> Optional[int]:
+        """The size of the next datagram waiting in the UDP socket (FIONREAD:
+        0 when it is empty); None where it cannot be read."""
+        t = self._transport
+        fd = getattr(t, "fd", None)
+        if fd is None and t is not None:
+            sock = t.get_extra_info("socket")
+            fd = sock.fileno() if sock is not None else None
+        if fd is None or fd < 0:
+            return None
+        try:
+            import fcntl
+            import struct
+            import termios
+            return struct.unpack("i", fcntl.ioctl(fd, termios.FIONREAD,
+                                                  b"\0" * 4))[0]
+        except (ImportError, OSError):
+            return None
+
+    def frame_counts(self) -> Dict[str, int]:
+        """This process's frame totals: the frames taken in from sessions,
+        the results sent, the drops, the other ends of a frame taken in
+        (paused, refused by the cache, undecodable), and the frames refused
+        for want of a session. `stop()` logs them as its last count."""
+        return {"pid": os.getpid(),
+                "frames_received": self.frames_received.value,
+                "results_sent": self.results_sent.value,
+                "dropped": self.engine.frames_dropped.value,
+                "frames_paused": self.frames_paused.value,
+                "cache_rejects": self.cache_rejects.value,
+                "bad_packets": self.bad_packets.value,
+                "frames_unknown_sender": self.frames_unknown_sender.value}
+
     def status(self) -> Dict[str, object]:
         lat = self.detect_latency.snapshot()
         return {
             "server": "zero_latency_yolo_tpu_torch",
+            "pid": os.getpid(),
             "port": self.port,
             "clients": len(self._sessions),
             "max_clients": self.config.max_clients,
@@ -1724,6 +1812,7 @@ class DetectionServer:
                 # machine's UDP drops since the bind (system-wide).
                 **self.socket_stats(),
                 "unknown_sender_naks": self.unknown_sender_naks.value,
+                "frames_unknown_sender": self.frames_unknown_sender.value,
                 "rx_pps": round(self.packets_received.rate(), 1),
             },
             "served_fps": round(self.results_sent.rate(), 1),

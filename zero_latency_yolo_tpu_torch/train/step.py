@@ -57,7 +57,8 @@ def init_train_state(params: Params, tx: AdamW, ema: bool = False
 
 
 def check_single_device(mesh_data: int = 1, mesh_model: int = 1) -> None:
-    """Refuse a mesh, as the engine's `_check_supported` does."""
+    """Refuse a mesh: the port's train step runs on one device (the JAX
+    step's mesh branch is not ported; the serving engine takes a mesh)."""
     if int(mesh_data) * int(mesh_model) > 1:
         raise ValueError("not implemented in the PyTorch port: "
                          "mesh_data/mesh_model > 1")
