@@ -201,11 +201,35 @@ and the script exits non-zero:
    time, the longest gap between two results of a client, the accounting
    by shard process and a timeline of the roll's steps printed. The
    manager exits with rc 0 and no shard left.
-15. report: a `kernels:` line, one JSON line of kernel numbers (launches on
+15. tools: the operator tools, each `python -m
+   zero_latency_yolo_tpu_torch.<tool>` (cv2 needed). detect: the deployed
+   weights at 416, batch 8, over TOOLS_IMAGES task frames written as PNGs
+   and a TOOLS_CLIP-frame MJPG clip, in this process with every count reset
+   just before and read just after: the f32 step's launches times the
+   batches (24 1x1 on the CUDA-core route, 39 bias+SiLU, 1 NMS a batch);
+   its lines against the same CLI on the CPU (plain versions) and against
+   the CLI run as a process (detect_lines_gate: counts and classes equal,
+   confidences and boxes within TOOLS_TOL, a detection on a threshold named
+   and excused); frames/s of the CLI and its wall time a batch printed.
+   export_onnx on the deployed weights: rc 0, the file reads back
+   bit-identical to the npz, and the deployed config's engine serving it
+   gives the npz engine's packed output bit for bit on task frames.
+   loadtest (LOADTEST_ARGS, free ports): its server a process on the card,
+   its clients in its own process; rc 0, the server warmed on cuda, sent =
+   results + drops short by at most SERVER_SLACK plus the server socket's
+   counted overflows, every kernel launched by the server in the timed
+   window (the 1x1 on the tensor cores); its line printed (served_fps,
+   server_detect_p99_ms, cpu_steal_pct, client e2e). stream_client: the
+   clip at TOOLS_CLIP_FPS fps with --print-dets to a server of the
+   deployed config on the card in this process: rc 0, every frame but
+   the last answered or counted dropped by the server, detections. soak
+   (SOAK_ARGS) against that server: rc 0, verdict clean. track_bench
+   (TRACK_ARGS): rc 0, its five scenarios printed.
+16. report: a `kernels:` line, one JSON line of kernel numbers (launches on
    the main path (the int8 path for the int8 conv), and by path: main,
    frame cache, each server load, the ladder, each variant, the adaptive
    load, the int8 path, its steps and its server loads, the train eval,
-   the mesh path; each kernel's
+   the mesh path, detect and the load test's server; each kernel's
    numbers at the yolov8s 640 batch-16 shapes, the int8 conv's at the int8
    batch-16 shapes), and the result line `{"ok": true, "device": {...}}`
    last.
@@ -3616,6 +3640,357 @@ def fleet_phase(torch, smi_line: str) -> dict:
     return out
 
 
+# Phase 15, the operator tools (`python -m zero_latency_yolo_tpu_torch.<tool>`)
+# on the card. Detect's inputs: TOOLS_IMAGES task frames written as PNGs and
+# a TOOLS_CLIP-frame MJPG clip of task frames (TOOLS_CLIP_FPS), at the
+# deployed size, in batches of TOOLS_BATCH; its run on the card against its
+# run on the CPU within TOOLS_TOL, a detection on a threshold (within
+# TOOLS_TOL of --conf, or a same-class pair within it of the IoU threshold)
+# named and excused. The load test's, the soak's and track_bench's
+# arguments are those of the module docstring.
+TOOLS_IMAGES = 8
+TOOLS_CLIP = 12
+TOOLS_CLIP_FPS = 30
+TOOLS_BATCH = 8
+TOOLS_TOL = 1e-4
+TOOLS_WEIGHTS = ROOT / "artifacts" / "yolov8n_trained_416.npz"
+LOADTEST_ARGS = ("--streams", "8", "--fps", "60", "--duration", "4",
+                 "--variant", "yolov8n", "--size", "416", "--dtype",
+                 "bfloat16")
+SOAK_ARGS = ("--streams", "4", "--duration", "8", "--fault", "0.05")
+TRACK_ARGS = ("--frames", "300", "--targets", "4")
+# The launches of one f32 step of the deployed model (phase 3's counts).
+STEP_LAUNCHES = {"conv1x1_bias_act": 24, "bias_silu": 39, "nms_keep": 1}
+
+
+def detect_lines_gate(want: list, got: list, conf: float, nms: float,
+                      conf_tol: float, box_tol: float,
+                      thresh_tol: float = TOOLS_TOL) -> dict:
+    """Two runs of `detect` (their JSON lines) against each other: the same
+    sources and frame sizes, and every detection of either with a twin in
+    the other (the same class, confidence within conf_tol, box within
+    box_tol) or decided on a threshold (confidence within thresh_tol of
+    `conf`, or an IoU within thresh_tol of `nms` with a detection of its
+    class), which is excused and named. Returns {ok, identical, excused,
+    failed, conf_err, box_err, detections}."""
+    def rows(r):
+        return [(d["class"], d["confidence"],
+                 (d["cx"], d["cy"], d["w"], d["h"])) for d in r["detections"]]
+
+    out = {"identical": want == got, "excused": [], "failed": [],
+           "conf_err": 0.0, "box_err": 0.0,
+           "detections": sum(len(r["detections"]) for r in want)}
+    if [(r["source"], r["width"], r["height"]) for r in want] != [
+            (r["source"], r["width"], r["height"]) for r in got]:
+        out["failed"].append("sources or frame sizes differ")
+    for a, b in zip(want, got):
+        for side, (xs, ys) in (("first", (rows(a), rows(b))),
+                               ("second", (rows(b), rows(a)))):
+            free = list(ys)
+            for d in xs:
+                twin = next((y for y in free if y[0] == d[0]
+                             and abs(y[1] - d[1]) <= conf_tol
+                             and max(abs(p - q) for p, q in zip(y[2], d[2]))
+                             <= box_tol), None)
+                if twin is not None:
+                    free.remove(twin)
+                    out["conf_err"] = max(out["conf_err"],
+                                          abs(twin[1] - d[1]))
+                    out["box_err"] = max(out["box_err"], max(
+                        abs(p - q) for p, q in zip(twin[2], d[2])))
+                    continue
+                note = f"{a['source']}: {side} run's {d}"
+                if abs(d[1] - conf) <= thresh_tol:
+                    out["excused"].append(f"{note}: confidence on {conf}")
+                elif any(o is not d and o[0] == d[0] and abs(
+                        _iou_to(d[2], np.array([o[2]]))[0] - nms)
+                        <= thresh_tol for o in xs + ys):
+                    out["excused"].append(f"{note}: an IoU on {nms}")
+                else:
+                    out["failed"].append(f"{note} has no twin")
+    out["ok"] = not out["failed"]
+    return out
+
+
+def _tool(tool: str, *args, timeout: float = 300.0):
+    """`python -m zero_latency_yolo_tpu_torch.<tool> args --device DEVICE`
+    from the repo root; returns (rc, the JSON lines of its stdout, its
+    stderr)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", f"zero_latency_yolo_tpu_torch.{tool}",
+         *map(str, args), "--device", DEVICE], cwd=ROOT, capture_output=True,
+        text=True, timeout=timeout)
+    lines = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.startswith("{")]
+    return proc.returncode, lines, proc.stderr
+
+
+def _detect_in_process(argv: list, batch_ms: list) -> list:
+    """detect.main(argv) in this process, its JSON lines returned and the
+    wall time of each batch's run (staging, step, readback) appended to
+    batch_ms."""
+    import contextlib
+    import io
+    from zero_latency_yolo_tpu_torch import detect
+    make_runner = detect.make_runner
+
+    def timed_runner(*a, **k):
+        run = make_runner(*a, **k)
+
+        def timed(*xs):
+            t0 = time.perf_counter()
+            out = run(*xs)
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+    detect.make_runner = timed_runner
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = detect.main(argv)
+    finally:
+        detect.make_runner = make_runner
+    require(rc == 0, f"detect.main returned {rc}")
+    return [json.loads(x) for x in out.getvalue().splitlines()]
+
+
+def _write_tool_media(cv2, directory: Path) -> tuple:
+    """The task frames of detect's inputs: PNGs and an MJPG clip."""
+    imgs = directory / "imgs"
+    imgs.mkdir()
+    for i, f in enumerate(task_frames(TOOLS_IMAGES, 416, seed=881)):
+        require(cv2.imwrite(str(imgs / f"task{i}.png"), f[..., ::-1]),
+                "cv2 could not write a PNG")
+    clip = directory / "clip.avi"
+    vw = cv2.VideoWriter(str(clip), cv2.VideoWriter_fourcc(*"MJPG"),
+                         TOOLS_CLIP_FPS, (416, 416))
+    require(vw.isOpened(), "cv2 cannot write an MJPG clip")
+    for f in task_frames(TOOLS_CLIP, 416, seed=882):
+        vw.write(np.ascontiguousarray(f[..., ::-1]))
+    vw.release()
+    return imgs, clip
+
+
+def tools_phase(torch, smi_line: str) -> dict:
+    """Phase 15, the operator tools (see the module docstring). Returns the
+    launches of the detect path and of the load test's server, and the
+    load test's line."""
+    import tempfile
+    try:
+        import cv2
+    except ImportError:
+        raise SystemExit("chip_smoke: the tools phase needs cv2")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        imgs, clip = _write_tool_media(cv2, tmp)
+        out = {"detect": _detect_and_export(torch, smi_line, tmp, imgs, clip)}
+        out.update(_loadtest(smi_line))
+        _stream_and_soak(clip)
+    _track_bench()
+    return out
+
+
+def _detect_and_export(torch, smi_line: str, tmp: Path, imgs: Path,
+                       clip: Path) -> dict:
+    """detect and export_onnx of phase 15; returns detect's launches."""
+    from zero_latency_yolo_tpu_torch.models.weights import (flatten,
+                                                            from_onnx,
+                                                            load_params)
+    from zero_latency_yolo_tpu_torch.ops import conv1x1_cuda
+    from zero_latency_yolo_tpu_torch.runtime.engine import (InferenceEngine,
+                                                            InferenceRequest)
+    n_frames = TOOLS_IMAGES + TOOLS_CLIP
+    batches = -(-n_frames // TOOLS_BATCH)
+    argv = ["--weights", str(TOOLS_WEIGHTS), str(imgs), str(clip),
+            "--size", "416", "--batch", str(TOOLS_BATCH)]
+    dev_argv = argv + ["--device", DEVICE]
+    conf, nms = 0.5, 0.45  # detect's defaults
+
+    # detect on DEVICE, in this process, counts reset just before.
+    batch_ms = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    lines = _detect_in_process(dev_argv, batch_ms)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(launch_counts(),
+                    conv1x1_simt=conv1x1_cuda.launches_by_route["simt"])
+    ndet = sum(len(r["detections"]) for r in lines)
+    print(f"detect on {DEVICE}: {len(lines)} frames in {batches} "
+          f"batches of {TOOLS_BATCH} at 416, {ndet} detections, "
+          f"launches {launches}", flush=True)
+    require(len(lines) == n_frames, f"detect printed {len(lines)} lines "
+                                    f"for {n_frames} frames")
+    require(ndet > 0, "detect found nothing on the task frames")
+    want = {k: v * batches for k, v in STEP_LAUNCHES.items()}
+    require({k: launches[k] for k in want} == want,
+            f"detect's launches {launches}, not {want} "
+            f"({batches} f32 steps)")
+    require(launches["conv1x1_simt"] == launches["conv1x1_bias_act"]
+            and launches["conv1x1_wgmma"] == 0,
+            f"detect's f32 1x1 convs off the CUDA-core route: {launches}")
+    rest = sorted(batch_ms[1:])
+    print(f"detect on {smi_line}: {n_frames / wall:.2f} frames/s over the "
+          f"whole CLI ({wall:.3f} s: weights, decode, letterbox, "
+          f"{batches} steps, output); a batch (stage, f32 step, "
+          f"readback; host clock) first {batch_ms[0]:.3f} ms, then "
+          f"{', '.join(f'{v:.3f}' for v in batch_ms[1:])} ms (median "
+          f"{rest[len(rest) // 2]:.3f})", flush=True)
+
+    # The same CLI on the CPU (every kernel's plain version).
+    cpu_lines = _detect_in_process(argv + ["--device", "cpu"], [])
+    g = detect_lines_gate(cpu_lines, lines, conf, nms, TOOLS_TOL,
+                          TOOLS_TOL)
+    print(f"detect card vs CPU: identical {g['identical']}, largest "
+          f"confidence difference {g['conf_err']:.3g}, box "
+          f"{g['box_err']:.3g} (gate {TOOLS_TOL:g}); excused on a "
+          f"threshold {g['excused']}", flush=True)
+    require(g["ok"], f"detect on the card differs from the CPU: "
+                     f"{g['failed'][:4]}")
+
+    # The same CLI as a process.
+    rc, plines, err = _tool("detect", *argv)
+    require(rc == 0, f"python -m ...detect exited {rc}: {err[-2000:]}")
+    g = detect_lines_gate(lines, plines, conf, nms, TOOLS_TOL, TOOLS_TOL)
+    print(f"python -m zero_latency_yolo_tpu_torch.detect: rc {rc}, "
+          f"{len(plines)} lines, identical to the in-process run "
+          f"{g['identical']}", flush=True)
+    require(g["ok"], f"the detect process differs from the in-process "
+                     f"run: {g['failed'][:4]}")
+
+    # export_onnx on the deployed weights, then the .onnx served.
+    onnx = tmp / "yolov8n_416.onnx"
+    t0 = time.perf_counter()
+    rc, elines, err = _tool("export_onnx", "--weights", TOOLS_WEIGHTS,
+                            "--size", "416", "--out", onnx)
+    require(rc == 0 and elines, f"export_onnx exited {rc}: "
+                                f"{err[-2000:]}")
+    print(f"export_onnx: {elines[-1]} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    require(elines[-1]["roundtrip_max_diff"] == 0.0,
+            "the export does not read back bit-identical")
+    src, back = flatten(load_params(str(TOOLS_WEIGHTS))), flatten(
+        from_onnx(str(onnx)))
+    require(set(src) == set(back) and all(
+        np.array_equal(src[k], back[k]) for k in src),
+        "the .onnx's initializers differ from the npz")
+    reqs = frame_requests(InferenceRequest,
+                          list(task_frames(8, 416, seed=883)))
+    packed = {}
+    for ext, path in (("npz", TOOLS_WEIGHTS), ("onnx", onnx)):
+        cfg = load_config(CONFIG)
+        cfg.model_path = str(path)
+        eng = InferenceEngine(cfg, device=DEVICE)
+        require(not eng.simulation, f"the {ext} engine is in simulation")
+        packed[ext] = eng.dispatch(reqs).out.cpu()
+        del eng
+    require(torch.equal(packed["onnx"], packed["npz"]),
+            "the .onnx engine's step differs from the .npz engine's")
+    require(int(packed["npz"][:, 0].sum()) > 0, "export check vacuous")
+    print(f"export: the deployed config's engine serves the .onnx "
+          f"bit for bit as the .npz (counts "
+          f"{packed['npz'][:, 0].int().tolist()})", flush=True)
+    return launches
+
+
+def _loadtest(smi_line: str) -> dict:
+    """The load test of phase 15; returns its server's launches and its
+    line."""
+    from zero_latency_yolo_tpu_torch.bench_server import free_port
+    import socket as _socket
+    # Its clients in its own process, its server on the card.
+    t0 = time.perf_counter()
+    rc, llines, err = _tool("loadtest", *LOADTEST_ARGS, "--port", free_port(),
+                            "--web-port", free_port(_socket.SOCK_STREAM),
+                            timeout=600)
+    require(rc == 0 and llines, f"loadtest exited {rc}: {err[-3000:]}")
+    rep = llines[-1]
+    print(f"loadtest ({time.perf_counter() - t0:.1f} s in all): "
+          f"{json.dumps(rep)}", flush=True)
+    sock = rep["server_socket"]
+    overflows = max([v for v in sock.values() if isinstance(v, int)] or [0])
+    short = rep["frames_sent"] - rep["results_received"] - rep["frames_dropped"]
+    from zero_latency_yolo_tpu_torch.utils.stats import cpu_times
+    print(f"this host's /proc/stat cpu fields (cpu_steal_pct reads the "
+          f"8th): {cpu_times()}", flush=True)
+    print(f"loadtest on {smi_line}: sent {rep['frames_sent']}, results "
+          f"{rep['results_received']}, dropped {rep['frames_dropped']}, "
+          f"short {short} (allowed 0..{SERVER_SLACK} + socket overflows "
+          f"{overflows}); served_fps {rep['served_fps']}, server detect p99 "
+          f"{rep['server_detect_p99_ms']} ms, cpu_steal_pct "
+          f"{rep['cpu_steal_pct']}, client e2e p50/p99 "
+          f"{rep['client_e2e_p50_ms']}/{rep['client_e2e_p99_ms']} ms; "
+          f"launches {rep['kernel_launches']}", flush=True)
+    require("# engine warm" in err and str(rep["server_device"]).startswith(
+        DEVICE), f"the load test's server is not warmed on {DEVICE}: "
+                 f"{rep['server_device']}")
+    require(0 <= short <= SERVER_SLACK + overflows,
+            f"loadtest: {short} frames neither served nor counted")
+    lt = rep["kernel_launches"]
+    require(all(lt[k] > 0 for k in PATH3),
+            f"a kernel was not launched by the load test's server: {lt}")
+    require(lt["conv1x1_wgmma"] == lt["conv1x1_bias_act"],
+            f"bf16 1x1 convs off the tensor cores in the load test: {lt}")
+    return {"loadtest_server": lt, "loadtest": rep}
+
+
+def _stream_and_soak(clip: Path) -> None:
+    """stream_client and soak of phase 15, against a server of the deployed
+    config in this process."""
+    from zero_latency_yolo_tpu_torch.bench_server import (ServerThread,
+                                                          deployed_config)
+    from zero_latency_yolo_tpu_torch.runtime.server import DetectionServer
+    cfg = deployed_config(tracking=True)
+    srv = ServerThread(DetectionServer(cfg, device=DEVICE)).start(warmup=True)
+    try:
+        port, web = srv.server.port, cfg.network.web_port
+
+        def dropped():
+            return int(srv.server.engine.status()["dropped"])
+        drops = dropped()
+        rc, slines, err = _tool("stream_client", clip, "--server",
+                                f"127.0.0.1:{port}", "--fps", TOOLS_CLIP_FPS,
+                                "--print-dets", timeout=120)
+        require(rc == 0 and slines, f"stream_client exited {rc}: "
+                                    f"{err[-2000:]}")
+        drops = dropped() - drops
+        stats, dets = slines[-1], [x for x in slines if "frame_id" in x]
+        ndet = sum(len(d["detections"]) for d in dets)
+        print(f"stream_client ({TOOLS_CLIP} frames at {TOOLS_CLIP_FPS} fps, "
+              f"the deployed config on {DEVICE}): {json.dumps(stats)}; "
+              f"{len(dets)} result lines printed while streaming, {ndet} "
+              f"detections in them; the server dropped {drops}", flush=True)
+        # Every frame pushed is answered or counted dropped by the server
+        # (the newest frame of a client wins), but the last, which may be
+        # in flight when the client stops.
+        require(stats["frames_pushed"] == TOOLS_CLIP and stats["results"] > 0
+                and stats["results"] + drops >= stats["frames_pushed"] - 1
+                and 0 < len(dets) <= stats["results"] and ndet > 0,
+                f"stream_client: results for {stats['results']} of "
+                f"{stats['frames_pushed']} frames, {drops} dropped, {ndet} "
+                "detections")
+        rc, vlines, err = _tool("soak", "--port", port, "--web-port", web,
+                                *SOAK_ARGS, timeout=120)
+        require(vlines, f"soak printed no verdict (rc {rc}): {err[-2000:]}")
+        print(f"soak: rc {rc}, {json.dumps(vlines[-1])}", flush=True)
+        require(rc == 0 and vlines[-1]["clean"], "soak verdict not clean")
+    finally:
+        srv.stop()
+
+
+def _track_bench() -> None:
+    """track_bench's quick battery, phase 15."""
+    t0 = time.perf_counter()
+    rc, tlines, err = _tool("track_bench", *TRACK_ARGS, timeout=300)
+    require(rc == 0 and tlines, f"track_bench exited {rc}: {err[-2000:]}")
+    sc = tlines[-1]["scenarios"]
+    print(f"track_bench {' '.join(TRACK_ARGS)} in "
+          f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
+              f"{n} MOTA {r['mota']} idsw {r['id_switches']} update p99 "
+              f"{r['update_ms_p99']} ms" for n, r in sc.items()), flush=True)
+    require(len(sc) == 5 and all(np.isfinite(r["mota"]) for r in sc.values()),
+            f"track_bench scenarios {sorted(sc)}")
+
+
 def main() -> None:
     with Phase("device"):
         import torch
@@ -3835,6 +4210,9 @@ def main() -> None:
     with Phase("fleet"):
         fleet_phase(torch, smi_line)
 
+    with Phase("tools"):
+        tools = tools_phase(torch, smi_line)
+
     # The int8 conv's own path is the int8 path; every other kernel's is
     # the main path of phase 4.
     launches["conv_int8"] = int8["launches"]["conv_int8"]
@@ -3852,7 +4230,9 @@ def main() -> None:
                    "int8_server_cached": int8["server"][n],
                    "int8_server_profilez": int8["server_profilez"][n],
                    "train_eval": train["launches"][n],
-                   "mesh": mesh["launches"][n]}
+                   "mesh": mesh["launches"][n],
+                   "detect": tools["detect"][n],
+                   "loadtest_server": tools["loadtest_server"][n]}
                for n in KERNELS}
     s640 = ladder["report"]
     print("kernels: " + ", ".join(

@@ -1073,3 +1073,104 @@ def test_two_card_mesh_matches_single_device(dev, monkeypatch, data, model):
     got = eng.complete(_from_cache(eng, cache, _requests(8, seed=7),
                                    [r.client_id for r in reqs]))
     _close_dets(_dets(got), want, 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The operator tools on the card
+# ---------------------------------------------------------------------------
+
+def _tool_tree(seed):
+    """A yolov8p tree, every leaf perturbed (no two initializers equal) and
+    the class scores spread over (0, 1)."""
+    from zero_latency_yolo_tpu_torch.models.weights import flatten, unflatten
+    from zero_latency_yolo_tpu_torch.models.yolov8 import get_spec, init_params
+    rng = np.random.default_rng(seed)
+    tree = unflatten({k: np.asarray(v, np.float32)
+                      + rng.normal(0, 0.05, np.shape(v)).astype(np.float32)
+                      for k, v in flatten(init_params(
+                          seed, get_spec("yolov8p", 4))).items()})
+    for i, lvl in enumerate(tree["m22"]["cv3"]):
+        lvl[2]["w"] = lvl[2]["w"] * 8.0
+        lvl[2]["b"] = np.linspace(-2, 2, 4).astype(np.float32) + 0.01 * i
+    return tree
+
+
+def test_detect_on_the_card_matches_the_cpu(dev, tmp_path):
+    """`detect` on the card launches the f32 step's kernels (the 1x1 on its
+    CUDA-core route, bias+SiLU, NMS once a batch) and prints the lines of
+    its `--device cpu` run: counts and classes equal, confidences and boxes
+    within chip_smoke.TOOLS_TOL (a detection on a threshold excused)."""
+    import contextlib
+    import io
+    import json
+    cv2 = pytest.importorskip("cv2")
+    from chip_smoke import STEP_LAUNCHES, TOOLS_TOL, detect_lines_gate, \
+        task_frames
+    from zero_latency_yolo_tpu_torch import detect
+    from zero_latency_yolo_tpu_torch.models.weights import save_params
+    from zero_latency_yolo_tpu_torch.ops.launches import launch_counts
+    weights = str(tmp_path / "pico.npz")
+    save_params(_tool_tree(7), weights)
+    imgs = tmp_path / "imgs"
+    imgs.mkdir()
+    for i, f in enumerate(task_frames(5, 64, seed=71)):
+        cv2.imwrite(str(imgs / f"t{i}.png"), f)
+    argv = ["--weights", weights, str(imgs), "--size", "64", "--conf",
+            "0.01", "--batch", "2"]
+
+    def run(device):
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            assert detect.main(argv + ["--device", device]) == 0
+        return [json.loads(x) for x in out.getvalue().splitlines()]
+    before = launch_counts()
+    got = run("cuda")
+    torch.cuda.synchronize()
+    after = launch_counts()
+    n = {k: after[k] - before[k] for k in after}
+    assert {k: n[k] for k in STEP_LAUNCHES} == {
+        k: v * 3 for k, v in STEP_LAUNCHES.items()}   # 5 frames, batch 2
+    assert n["conv1x1_simt"] == n["conv1x1_bias_act"] and n["conv1x1_wgmma"] == 0
+    want = run("cpu")
+    g = detect_lines_gate(want, got, 0.01, 0.45, TOOLS_TOL, TOOLS_TOL)
+    assert g["ok"], g["failed"][:4]
+    assert g["detections"] > 0
+
+
+def test_exported_onnx_serves_as_the_npz_on_the_card(dev, tmp_path):
+    """A tree exported with the twin traced on the card reads back
+    bit-identical, and an engine on the card serving the `.onnx` gives the
+    `.npz` engine's packed output to the last bit."""
+    from chip_smoke import synthetic_frame
+    from zero_latency_yolo_tpu_torch.config import ServerConfig
+    from zero_latency_yolo_tpu_torch.models.ultra import export_deployment_onnx
+    from zero_latency_yolo_tpu_torch.models.weights import (flatten,
+                                                            from_onnx,
+                                                            save_params)
+    from zero_latency_yolo_tpu_torch.models.yolov8 import get_spec
+    from zero_latency_yolo_tpu_torch.runtime.engine import (InferenceEngine,
+                                                            InferenceRequest)
+    tree = _tool_tree(8)
+    npz, onnx = str(tmp_path / "m.npz"), str(tmp_path / "m.onnx")
+    save_params(tree, npz)
+    export_deployment_onnx(tree, get_spec("yolov8p", 4), onnx, 64,
+                           device="cuda")
+    src, back = flatten(tree), flatten(from_onnx(onnx))
+    assert set(src) == set(back)
+    assert all(np.array_equal(src[k], back[k]) for k in src)
+    reqs = [InferenceRequest(client_id=i + 1, frame_id=i, timestamp=i,
+                             width=96, height=64,
+                             data=synthetic_frame(96, 64, seed=i))
+            for i in range(2)]
+    outs = []
+    for path in (npz, onnx):
+        cfg = ServerConfig.from_dict({
+            "model_path": path, "confidence_threshold": 0.01,
+            "detection": {"model_width": 64, "model_height": 64},
+            "tpu": {"variant": "yolov8p", "num_classes": 4,
+                    "dtype": "bfloat16", "batch_buckets": [1, 2],
+                    "frame_buckets": [[64, 96]]}})
+        eng = InferenceEngine(cfg, device="cuda")
+        assert not eng.simulation
+        outs.append(eng.dispatch(reqs).out.cpu())
+    assert torch.equal(outs[0], outs[1])
+    assert int(outs[0][:, 0].sum()) > 0

@@ -46,6 +46,17 @@ def test_isolation_covers_the_mesh_and_the_fleet():
             "zero_latency_yolo_tpu_torch/serve_fleet.py"} <= names
 
 
+def test_isolation_covers_the_operator_tools():
+    """The operator tools and the modules they brought (media sources, the
+    ultralytics twin, the launch counts, the device rule) are among the
+    files the import checks above walk."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {f"zero_latency_yolo_tpu_torch/{m}.py" for m in (
+        "detect", "stream_client", "loadtest", "soak", "track_bench",
+        "export_onnx", "runtime/media", "models/ultra", "utils/stats",
+        "utils/device", "ops/launches")} <= names
+
+
 def test_package_imports_with_jax_blocked():
     """Every module of the port imports in a process where `import jax` and
     `import zero_latency_yolo_tpu` fail."""

@@ -60,6 +60,7 @@ from ..utils.events import (
 )
 from ..protocol import native
 from ..protocol.packets import next_sequence, now_ms
+from ..ops.launches import launch_counts
 from ..ops.roi import DeviceFrameCache
 from ..utils.logging import get_logger
 from ..utils.netstats import SystemUdpDrops, request_buffers, socket_drops
@@ -1843,6 +1844,9 @@ class DetectionServer:
             } if self.device_cache is not None else None),
             "keyframe_requests": self.keyframe_requests.value,
             "engine": self.engine.status(),
+            # The kernels this process launched (ops/launches.py), read by
+            # processes that drive the server from outside (loadtest.py).
+            "kernel_launches": launch_counts(),
             "adapter": self.adapter.status(),
             # Host GC pauses stop ALL serving threads — surfaced next to the
             # latency they inflate (utils/gcstats.py; tpu.gc_tune posture).

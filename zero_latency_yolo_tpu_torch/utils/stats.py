@@ -1,12 +1,14 @@
-"""Latency / throughput counters (a copy of `RollingStats` and `Counter`
-from the JAX package's `utils/stats.py`, which the engine uses)."""
+"""Latency / throughput counters and host CPU accounting (a copy of the JAX
+package's `utils/stats.py`: `RollingStats` and `Counter`, which the engine
+uses, and `cpu_times`, `steal_pct` and `Stopwatch`, which `loadtest.py`
+uses)."""
 
 from __future__ import annotations
 
 import threading
 import time
 from collections import deque
-from typing import Dict
+from typing import Dict, Optional
 
 
 class RollingStats:
@@ -86,3 +88,42 @@ class Counter:
         span = max(now - (cutoff + 1) * self._BIN_S, self._BIN_S)
         with self._lock:
             return sum(n for b, n in self._bins if b > cutoff) / span
+
+
+def cpu_times() -> Optional[list]:
+    """First /proc/stat cpu line as ints (user..guest_nice); None off-Linux.
+    A pair of snapshots feeds steal_pct: hypervisor CPU steal inflates
+    latency tails on shared VMs, and a measurement row without the steal
+    number looks like a regression."""
+    try:
+        with open("/proc/stat") as f:
+            parts = f.readline().split()
+        return [int(v) for v in parts[1:]] if parts[:1] == ["cpu"] else None
+    except (OSError, ValueError):
+        return None
+
+
+def steal_pct(before: Optional[list], after: Optional[list]) -> Optional[float]:
+    """Steal share (%) of total CPU time between two cpu_times snapshots."""
+    if not before or not after or len(before) < 8 or len(after) < 8:
+        return None
+    total = sum(after) - sum(before)
+    steal = after[7] - before[7]
+    return round(100.0 * steal / total, 1) if total > 0 else None
+
+
+class Stopwatch:
+    """Context-manager timer recording into a RollingStats (milliseconds)."""
+
+    def __init__(self, stats: Optional[RollingStats] = None) -> None:
+        self.stats = stats
+        self.elapsed_ms = 0.0
+
+    def __enter__(self) -> "Stopwatch":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.elapsed_ms = (time.perf_counter() - self._t0) * 1e3
+        if self.stats is not None:
+            self.stats.record(self.elapsed_ms)
