@@ -225,11 +225,44 @@ and the script exits non-zero:
    the last answered or counted dropped by the server, detections. soak
    (SOAK_ARGS) against that server: rc 0, verdict clean. track_bench
    (TRACK_ARGS): rc 0, its five scenarios printed.
-16. report: a `kernels:` line, one JSON line of kernel numbers (launches on
+16. train mesh and training tools: the trainer on virtual meshes over
+   cuda:0 (`available_devices` replaced by a repeated cuda:0, as in phase
+   13: the times are the mesh's overhead, not its scaling). f32: the train
+   fixture's recipe (phase 12) on 2x1 (one image a row) and 1x2, each
+   through train_fixture_gate at TRAIN_TOL under PyTorch's default TF32
+   settings. bf16 at full width: yolov8n at 416, batch 16, the center
+   assigner, TRAIN_MESH_STEPS steps of the const chain with the EMA, on
+   one device and on 2x1, 1x2 and 2x2: every loss finite and the loss
+   falls; every copy of every replicated leaf (and of every sharded slice
+   across the data rows) bit-equal after the steps; the joined params
+   within TRAIN_MESH_BF16_FACTOR x D_own of the single-device bf16 run, and
+   the same meshes' f32 runs within TRAIN_MESH_F32_FRACTION x D_own of the
+   single-device f32 run (see the constants for D and D_own). Printed,
+   not gated, beside the card's name and power limit: each mesh's wall ms
+   a step, images/s, device busy ms, kernels a step and peak memory,
+   beside the single-device step's. Resume across layouts under cuDNN
+   determinism: a 2x1 checkpoint at TRAIN_MESH_RESUME_AT resumed on 2x1
+   equals the uninterrupted 2x1 run bit for bit, resumed on one device
+   ends within the bf16 limit of it, and a single-device checkpoint
+   resumed on 2x1 ends within the bf16 limit of the single-device run.
+   The tools, each in this process: train_step_bench on one device and on
+   a virtual 2x1 mesh (yolov8n 416, batches 8 and 16): one JSON line each,
+   finite rows, printed; eval_artifact on the deployed weights (blob, 64
+   images, f32) with its launches reset just before and read just after
+   (each > 0, the 1x1 on its CUDA-core route), its mAP and mAP50-95 equal
+   to `evaluate` with the plain versions, and the same eval in bf16 (the
+   1x1 on the tensor cores); train_variant_artifact with 3 steps a stage,
+   its artifact loaded and served by the deployed config's engine; the
+   flywheel on a capture directory written by the port's capture
+   (`runtime/capture.py`) from the deployed engine's results on
+   FLYWHEEL_FRAMES task frames: rc 0, the candidate promoted (its evals
+   are `eval_artifact` processes on the card), the decision printed.
+17. report: a `kernels:` line, one JSON line of kernel numbers (launches on
    the main path (the int8 path for the int8 conv), and by path: main,
    frame cache, each server load, the ladder, each variant, the adaptive
    load, the int8 path, its steps and its server loads, the train eval,
-   the mesh path, detect and the load test's server; each kernel's
+   the mesh path, detect, the load test's server and the training tools'
+   evals; each kernel's
    numbers at the yolov8s 640 batch-16 shapes, the int8 conv's at the int8
    batch-16 shapes), and the result line `{"ok": true, "device": {...}}`
    last.
@@ -2584,19 +2617,18 @@ def norms_and_dots(leaves, probes) -> tuple:
     return np.array(norms), np.array(dots)
 
 
-def train_fixture_run(torch, device: str, fx) -> dict:
+def train_fixture_run(torch, device: str, fx, mesh=None) -> dict:
     """The port's run of the train fixture's recipe (its `config`) in f32 on
-    `device`: the per-step metrics, and (norms, dots) of step 1's gradient
-    and of the params and the EMA after the steps, with the probes' norms.
-    The step runs in full f32 (`full_f32_precision`) whatever PyTorch's TF32
-    settings."""
+    `device`, or on `mesh` (a `parallel.mesh` Mesh): the per-step metrics,
+    and (norms, dots) of step 1's gradient (the step's `value_and_grad`,
+    joined on a mesh) and of the params and the EMA after the steps, with
+    the probes' norms. The step runs in full f32 (`full_f32_precision`)
+    whatever PyTorch's TF32 settings."""
     from zero_latency_yolo_tpu_torch.models.weights import (
         train_params_from_jax, tree_leaves)
-    from zero_latency_yolo_tpu_torch.models.yolov8 import (
-        forward_train_raw, get_spec, init_params)
-    from zero_latency_yolo_tpu_torch.runtime.engine import full_f32_precision
+    from zero_latency_yolo_tpu_torch.models.yolov8 import get_spec, init_params
+    from zero_latency_yolo_tpu_torch.parallel.mesh import join_state
     from zero_latency_yolo_tpu_torch.train.loop import synthetic_batches
-    from zero_latency_yolo_tpu_torch.train.loss import detection_loss
     from zero_latency_yolo_tpu_torch.train.optim import make_optimizer
     from zero_latency_yolo_tpu_torch.train.step import (init_train_state,
                                                          make_train_step)
@@ -2607,25 +2639,25 @@ def train_fixture_run(torch, device: str, fx) -> dict:
     state = init_train_state(train_params_from_jax(
         init_params(t["init_seed"], spec, folded=False), device=device), tx,
         ema=True)
-    leaves = tree_leaves(state.params)
-    probes = leaf_probes([tuple(p.shape) for p in leaves], t["probe_seed"])
+    probes = leaf_probes([tuple(p.shape) for p in tree_leaves(state.params)],
+                         t["probe_seed"])
     gen = synthetic_batches(t["batch"], t["size"], seed=t["data_seed"])
     batches = [next(gen) for _ in range(t["steps"])]
+    step = make_train_step(spec, tx, hw, dtype=torch.float32,
+                           ema_decay=t["ema_decay"], mesh=mesh)
+    state = step.shard_state(state)
     images, targets = (torch.from_numpy(a).to(device) for a in batches[0])
-    with full_f32_precision():
-        outs = forward_train_raw(state.params, spec, images)
-        grad1 = torch.autograd.grad(
-            detection_loss(spec, outs, targets, hw)[0], leaves)
+    grad1 = step.value_and_grad(state, images, targets)[2]
     out = {"grad1": norms_and_dots([g.cpu().numpy() for g in grad1], probes),
            "probe_norms": np.array([np.linalg.norm(p.astype(np.float64))
                                     for p in probes])}
-    step = make_train_step(spec, tx, hw, dtype=torch.float32,
-                           ema_decay=t["ema_decay"])
     metrics = {k: [] for k in ("loss", "box", "cls", "dfl")}
     for images, targets in batches:
         state, m = step(state, images, targets)
         for k in metrics:
             metrics[k].append(float(m[k]))
+    if mesh is not None:
+        state = join_state(state)
     out["metrics"] = metrics
     out["params3"] = norms_and_dots(
         [p.detach().cpu().numpy() for p in tree_leaves(state.params)], probes)
@@ -2698,10 +2730,13 @@ class deterministic:
 
 
 def _train_run(torch, spec, batches, size: int, assigner: str = "center",
-               schedule: str = "const", state=None, tx=None):
-    """bf16 steps of a fresh yolov8 state (init seed 0, EMA on), or of
-    `state` / `tx` when given, over `batches`. Returns (state, tx, per-step
-    losses, per-step host seconds, the step)."""
+               schedule: str = "const", state=None, tx=None,
+               dtype=None, mesh=None):
+    """Steps (bf16 unless `dtype`) of a fresh yolov8 state (init seed 0,
+    EMA on), or of `state` / `tx` when given, over `batches`, on `mesh`
+    (a `parallel.mesh` Mesh; None: one device; a fresh or single-device
+    state is placed on it). Returns (state, tx, per-step losses, per-step
+    host seconds, the step)."""
     from zero_latency_yolo_tpu_torch.models.weights import train_params_from_jax
     from zero_latency_yolo_tpu_torch.models.yolov8 import init_params
     from zero_latency_yolo_tpu_torch.train.optim import make_optimizer
@@ -2712,7 +2747,10 @@ def _train_run(torch, spec, batches, size: int, assigner: str = "center",
                             warmup_steps=2)
         state = init_train_state(train_params_from_jax(
             init_params(0, spec, folded=False), device=DEVICE), tx, ema=True)
-    step = make_train_step(spec, tx, (size, size), assigner=assigner)
+    step = make_train_step(spec, tx, (size, size), assigner=assigner,
+                           dtype=dtype or torch.bfloat16, mesh=mesh)
+    if mesh is not None and not hasattr(state, "mesh"):
+        state = step.shard_state(state)
     losses, secs = [], []
     for images, targets in batches:
         t0 = time.perf_counter()
@@ -3991,6 +4029,432 @@ def _track_bench() -> None:
             f"track_bench scenarios {sorted(sc)}")
 
 
+# Phase 16, the trainer on a mesh and the training tools. The meshes are
+# virtual on one card (`available_devices` replaced by a repeated cuda:0):
+# their times show the mesh's overhead, not its scaling.
+TRAIN_MESH_FIXTURE_SHAPES = ((2, 1), (1, 2))
+TRAIN_MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
+# bf16 at full width: yolov8n at TRAIN_N_SIZE, batch TRAIN_BATCH, the const
+# chain at 1e-3 with the EMA, TRAIN_MESH_STEPS steps (the loss spikes at
+# step 2 and falls below its start by step 5 at that rate); the resume
+# checks stop at TRAIN_MESH_RESUME_AT.
+TRAIN_MESH_STEPS = 8
+TRAIN_MESH_RESUME_AT = 4
+# How far a meshed run's params may end from the single-device run's,
+# D(a, b) = ||a - b|| / ||b - init|| over every leaf (the distance over the
+# size of the single-device run's own update). A mesh changes only the order
+# of sums (and cuDNN's algorithm for a halved batch or Cout). In bf16 that
+# is a rounding difference, and bf16 rounding alone moves the single-device
+# run D_own = D(bf16 single, f32 single) from its f32 twin: two bf16 runs
+# that round differently are two such draws, about sqrt(2) D_own apart, so
+# a meshed bf16 run must end within TRAIN_MESH_BF16_FACTOR * D_own of the
+# single-device bf16 run. In f32 the sums' order is all that differs; the
+# early loss spike amplifies it (measured on the CPU at batch 4 after 8
+# steps: D 0.021 in f32, against D_own 0.31 and 0.19-0.22 for the bf16
+# meshes), so the f32 mesh must end within TRAIN_MESH_F32_FRACTION * D_own.
+TRAIN_MESH_BF16_FACTOR = 2.0
+TRAIN_MESH_F32_FRACTION = 0.5
+# train_step_bench's ladder and pipeline lengths.
+BENCH_ARGS = ("--variant", "yolov8n", "--size", "416", "--batches", "8,16",
+              "--pipeline", "3,8", "--ema")
+# The flywheel's capture: task frames served by the deployed config and
+# written by the server's capture.
+FLYWHEEL_FRAMES = 40
+
+
+def param_distance(a, b, init) -> float:
+    """D(a, b) = ||a - b|| / ||b - init|| over every leaf, in float64."""
+    num = den = 0.0
+    for x, y, z in zip(a, b, init):
+        y = np.asarray(y, np.float64)
+        num += float(np.sum((np.asarray(x, np.float64) - y) ** 2))
+        den += float(np.sum((y - np.asarray(z, np.float64)) ** 2))
+    return float(np.sqrt(num / max(den, 1e-300)))
+
+
+def copies_differ(torch, mstate) -> tuple:
+    """(copies that differ from their reference, copies compared) over a
+    MeshTrainState: each replicated leaf against the first device's, each
+    sharded slice against its column's on data row 0 (params, EMA,
+    moments); the counts against the first device's."""
+    from zero_latency_yolo_tpu_torch.models.weights import tree_leaves
+    from zero_latency_yolo_tpu_torch.parallel.mesh import model_axis
+    specs = tree_leaves(mstate.specs)
+    m = mstate.mesh.model
+
+    def parts(s):
+        return ([tree_leaves(s.params), s.opt_state.mu, s.opt_state.nu]
+                + ([tree_leaves(s.ema_params)] if s.ema_params is not None
+                   else []))
+
+    differ = compared = 0
+    first = mstate.states[0]
+    for d, s in enumerate(mstate.states[1:], start=1):
+        compared += 1
+        differ += (s.step, s.opt_state.count, s.opt_state.sched_count) != (
+            first.step, first.opt_state.count, first.opt_state.sched_count)
+        for mine, lead, col in zip(parts(s), parts(first),
+                                   parts(mstate.states[d % m])):
+            for i, spec in enumerate(specs):
+                sharded = model_axis(spec) is not None
+                if sharded and d < m:
+                    continue  # data row 0's own slice: the reference
+                ref = (col if sharded else lead)[i]
+                compared += 1
+                differ += not torch.equal(mine[i].to(ref.device), ref)
+    return differ, compared
+
+
+def _params_np(state) -> list:
+    """The params of a state (joined when meshed) as NumPy leaves."""
+    from zero_latency_yolo_tpu_torch.models.weights import tree_leaves
+    from zero_latency_yolo_tpu_torch.parallel.mesh import join_state
+    if hasattr(state, "mesh"):
+        state = join_state(state)
+    return [p.detach().float().cpu().numpy() for p in tree_leaves(
+        state.params)]
+
+
+def _in_process(tool, argv: list) -> list:
+    """tool.main(argv) in this process; its JSON lines (rc 0 required)."""
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = tool.main([*map(str, argv), "--device", DEVICE])
+    require(rc == 0, f"{tool.__name__} returned {rc}")
+    return [json.loads(x) for x in out.getvalue().splitlines()
+            if x.startswith("{")]
+
+
+def train_mesh_phase(torch, smi_line: str) -> dict:
+    """Phase 16, the trainer on a mesh and the training tools (see the
+    module docstring). Returns the tools' eval path's launches and the
+    phase's numbers."""
+    import tempfile
+    from zero_latency_yolo_tpu_torch.models.weights import tree_leaves
+    from zero_latency_yolo_tpu_torch.models.yolov8 import get_spec, init_params
+    from zero_latency_yolo_tpu_torch.parallel import mesh as pt_mesh
+    from zero_latency_yolo_tpu_torch.train.checkpoint import CheckpointManager
+    from zero_latency_yolo_tpu_torch.train.loop import synthetic_batches
+    dev0 = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    fx = np.load(FIXTURE_TRAIN)
+    t = json.loads(str(fx["config"]))
+    numbers = {"meshes": {}}
+    real = pt_mesh.available_devices
+    pt_mesh.available_devices = lambda device="cuda": [dev0] * 4
+    try:
+        # f32 against the JAX package's steps on virtual meshes, under
+        # PyTorch's default TF32 settings.
+        require(torch.backends.cudnn.allow_tf32,
+                "cuDNN TF32 is not at PyTorch's default (on)")
+        for d, m in TRAIN_MESH_FIXTURE_SHAPES:
+            mesh = pt_mesh.make_mesh(d, m, [dev0] * (d * m))
+            gate = train_fixture_gate(train_fixture_run(torch, DEVICE, fx,
+                                                        mesh=mesh), fx)
+            print(f"train mesh {d}x{m} f32 vs JAX (yolov8n {t['size']}, "
+                  f"batch {t['batch']}, {t['steps']} steps, const chain, "
+                  f"EMA): worst error over its scale {gate['worst']} "
+                  f"(limit {TRAIN_TOL:g})", flush=True)
+            require(gate["ok"], f"mesh {d}x{m} f32 train steps differ from "
+                                f"the JAX fixture: {gate['worst']}")
+
+        # bf16 (and f32) at full width, single device and each mesh.
+        spec = get_spec("yolov8n", 4)
+        gen = synthetic_batches(TRAIN_BATCH, TRAIN_N_SIZE, seed=1)
+        batches = [next(gen) for _ in range(TRAIN_MESH_STEPS)]
+        init = [np.asarray(x) for x in tree_leaves(init_params(
+            0, spec, folded=False))]
+        single = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state, _, losses, secs, step = _train_run(torch, spec, batches,
+                                                     TRAIN_N_SIZE, dtype=dtype)
+            name = str(dtype)[6:]
+            single[name] = {"params": _params_np(state), "losses": losses,
+                            "wall_ms": float(np.median(secs[2:])) * 1e3,
+                            "peak_gib": torch.cuda.max_memory_allocated()
+                            / 2 ** 30}
+            if dtype == torch.bfloat16:
+                prof = train_profile(torch, lambda: step(state, *batches[0]),
+                                     top=0)
+                single[name].update(busy_ms=prof["busy_ms"],
+                                    kernels=prof["kernels"])
+            del state
+        d_own = param_distance(single["bfloat16"]["params"],
+                               single["float32"]["params"], init)
+        s16 = single["bfloat16"]
+        print(f"train single device, yolov8n {TRAIN_N_SIZE} batch "
+              f"{TRAIN_BATCH}, {TRAIN_MESH_STEPS} steps on {smi_line}: bf16 "
+              f"losses {[round(v, 3) for v in s16['losses']]}; wall "
+              f"{s16['wall_ms']:.2f} ms/step, "
+              f"{TRAIN_BATCH / s16['wall_ms'] * 1e3:.1f} images/s, device "
+              f"busy {s16['busy_ms']:.2f} ms/step in {s16['kernels']:g} "
+              f"kernels, peak {s16['peak_gib']:.3f} GiB; bf16 ends D_own = "
+              f"{d_own:.4f} from f32 (its update's size = 1)", flush=True)
+        numbers["single"] = {k: v for k, v in s16.items() if k != "params"}
+        numbers["d_own"] = d_own
+        for d, m in TRAIN_MESH_SHAPES:
+            label = f"train mesh {d}x{m}"
+            mesh = pt_mesh.make_mesh(d, m, [dev0] * (d * m))
+            st32, _, _, _, _ = _train_run(torch, spec, batches,
+                                         TRAIN_N_SIZE, dtype=torch.float32,
+                                         mesh=mesh)
+            d32 = param_distance(_params_np(st32),
+                                 single["float32"]["params"], init)
+            del st32
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            st16, _, losses, secs, step = _train_run(torch, spec, batches,
+                                                    TRAIN_N_SIZE, mesh=mesh)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            d16 = param_distance(_params_np(st16),
+                                 single["bfloat16"]["params"], init)
+            differ, compared = copies_differ(torch, st16)
+            ms = float(np.median(secs[2:])) * 1e3
+            prof = train_profile(torch, lambda: step(st16, *batches[0]),
+                                 top=0)
+            first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+            print(f"{label} (virtual, one card: the mesh's overhead, not "
+                  f"its scaling) on {smi_line}: bf16 losses "
+                  f"{[round(v, 3) for v in losses]}; params D = {d16:.4f} "
+                  f"from the single-device bf16 run (limit "
+                  f"{TRAIN_MESH_BF16_FACTOR:g} x D_own = "
+                  f"{TRAIN_MESH_BF16_FACTOR * d_own:.4f}), f32 D = "
+                  f"{d32:.5f} from the single-device f32 run (limit "
+                  f"{TRAIN_MESH_F32_FRACTION * d_own:.4f}); copies "
+                  f"{differ} of {compared} differ; wall {ms:.2f} ms/step "
+                  f"against {s16['wall_ms']:.2f}, "
+                  f"{TRAIN_BATCH / ms * 1e3:.1f} images/s; device busy "
+                  f"{prof['busy_ms']:.2f} ms/step in {prof['kernels']:g} "
+                  f"kernels against {s16['busy_ms']:.2f} in "
+                  f"{s16['kernels']:g}; peak {peak:.3f} GiB", flush=True)
+            require(all(np.isfinite(losses)), f"{label}: a loss not finite")
+            require(last < first, f"{label}: the loss did not fall: {losses}")
+            require(differ == 0, f"{label}: {differ} copies differ")
+            require(d32 <= TRAIN_MESH_F32_FRACTION * d_own,
+                    f"{label}: f32 params {d32} from the single device's")
+            require(d16 <= TRAIN_MESH_BF16_FACTOR * d_own,
+                    f"{label}: bf16 params {d16} from the single device's")
+            numbers["meshes"][f"{d}x{m}"] = {
+                "losses": losses, "d_bf16": d16, "d_f32": d32,
+                "wall_ms": ms, "images_per_s": TRAIN_BATCH / ms * 1e3,
+                "busy_ms": prof["busy_ms"], "kernels": prof["kernels"],
+                "peak_gib": peak}
+            del st16
+
+        numbers["resume"] = _resume_across_layouts(
+            torch, spec, batches, init, d_own, pt_mesh.make_mesh(
+                2, 1, [dev0] * 2))
+    finally:
+        pt_mesh.available_devices = real
+    pt_mesh.available_devices = lambda device="cuda": [dev0] * 2
+    try:
+        numbers["bench"] = _train_step_bench(smi_line)
+    finally:
+        pt_mesh.available_devices = real
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, numbers["eval"] = _eval_artifact_on_card(torch)
+        _variant_artifact(torch, Path(tmp))
+        numbers["flywheel"] = _flywheel(torch, Path(tmp))
+    return {"launches": launches, "numbers": numbers}
+
+
+def _resume_across_layouts(torch, spec, batches, init, d_own, mesh) -> dict:
+    """Checkpoints at TRAIN_MESH_RESUME_AT across layouts (bf16, cuDNN
+    deterministic): a 2x1 checkpoint resumed on 2x1 equals the
+    uninterrupted 2x1 run bit for bit; resumed single-device, and a
+    single-device one resumed on 2x1, each ends within the bf16 limit of
+    the uninterrupted run of its first layout."""
+    import tempfile
+    from zero_latency_yolo_tpu_torch.models.weights import tree_leaves
+    from zero_latency_yolo_tpu_torch.parallel.mesh import join_state
+    from zero_latency_yolo_tpu_torch.train.checkpoint import CheckpointManager
+    k, n = TRAIN_MESH_RESUME_AT, TRAIN_N_SIZE
+    out = {}
+    with deterministic(torch), tempfile.TemporaryDirectory() as tmp:
+        whole_m, _, _, _, _ = _train_run(torch, spec, batches, n, mesh=mesh)
+        whole_s, _, _, _, _ = _train_run(torch, spec, batches, n)
+        half_m, mtx, _, _, _ = _train_run(torch, spec, batches[:k], n,
+                                        mesh=mesh)
+        half_s, stx, _, _, _ = _train_run(torch, spec, batches[:k], n)
+        mgr_m = CheckpointManager(str(Path(tmp) / "meshed"))
+        mgr_s = CheckpointManager(str(Path(tmp) / "single"))
+        mgr_m.save(half_m, mtx)
+        mgr_s.save(half_s, stx)
+        fresh_m, ftx, _, _, _ = _train_run(torch, spec, [], n, mesh=mesh)
+        fresh_s, _, _, _, _ = _train_run(torch, spec, [], n)
+        resumed = {}
+        for name, mgr, template, on in (
+                ("2x1 -> 2x1", mgr_m, fresh_m, mesh),
+                ("2x1 -> single", mgr_m, fresh_s, None),
+                ("single -> 2x1", mgr_s, fresh_m, mesh)):
+            state = mgr.restore(template, ftx)
+            require(state is not None and state.step == k,
+                    f"{name}: resumed at the wrong step")
+            state, _, _, _, _ = _train_run(torch, spec, batches[k:], n, mesh=on,
+                                           state=state, tx=ftx)
+            resumed[name] = state
+        a, b = join_state(whole_m), join_state(resumed["2x1 -> 2x1"])
+        ta, tb = ([p.detach() for p in tree_leaves(s.params)]
+                  + tree_leaves(s.ema_params) + s.opt_state.mu
+                  + s.opt_state.nu for s in (a, b))
+        differ = sum(not torch.equal(x, y) for x, y in zip(ta, tb))
+        differ += (a.step, a.opt_state.count) != (b.step, b.opt_state.count)
+        out["same_layout_leaves_differ"] = int(differ)
+        out["d_2x1_to_single"] = param_distance(
+            _params_np(resumed["2x1 -> single"]), _params_np(whole_m), init)
+        out["d_single_to_2x1"] = param_distance(
+            _params_np(resumed["single -> 2x1"]), _params_np(whole_s), init)
+        print(f"train mesh resume (bf16, deterministic cuDNN, checkpoint at "
+              f"step {k} of {len(batches)}): 2x1 -> 2x1 {differ} of "
+              f"{len(ta) + 1} leaves differ from the uninterrupted 2x1 run; "
+              f"2x1 -> single device D = {out['d_2x1_to_single']:.4f} from "
+              f"the 2x1 run, single device -> 2x1 D = "
+              f"{out['d_single_to_2x1']:.4f} from the single-device run "
+              f"(limit {TRAIN_MESH_BF16_FACTOR * d_own:.4f})", flush=True)
+        require(differ == 0, "a 2x1 checkpoint resumed on 2x1 differs from "
+                             "the uninterrupted run")
+        for key in ("d_2x1_to_single", "d_single_to_2x1"):
+            require(out[key] <= TRAIN_MESH_BF16_FACTOR * d_own,
+                    f"resume across layouts {key} = {out[key]}")
+    return out
+
+
+def _train_step_bench(smi_line: str) -> dict:
+    """train_step_bench in this process on one device and on a virtual
+    2x1 mesh: one JSON line each, every row finite."""
+    from zero_latency_yolo_tpu_torch import train_step_bench
+    out = {}
+    for mesh_args in ((), ("--mesh-data", "2")):
+        lines = _in_process(train_step_bench, [*BENCH_ARGS, *mesh_args])
+        require(len(lines) == 1, f"train_step_bench printed {lines}")
+        line = lines[0]
+        rows = line["rows"]
+        require([r["batch"] for r in rows] == [8, 16]
+                and all(np.isfinite(v) for r in rows for v in r.values()),
+                f"train_step_bench rows {rows}")
+        require(line["mesh"] == ("2x1" if mesh_args else None),
+                f"train_step_bench mesh {line['mesh']}")
+        print(f"train_step_bench {line['mesh'] or '1x1'} on {smi_line} "
+              f"({line['device']}): {rows}", flush=True)
+        out[line["mesh"] or "1x1"] = rows
+    return out
+
+
+def _eval_artifact_on_card(torch) -> tuple:
+    """eval_artifact on the deployed weights (blob, 64 images, f32) with
+    the kernels, against `evaluate` with their plain versions on the same
+    images (mAP and mAP50-95 equal); the launches of its path (each > 0,
+    the 1x1 on its f32 CUDA-core route), and of the same eval in bf16 (the
+    1x1 on the tensor cores)."""
+    from zero_latency_yolo_tpu_torch import eval_artifact
+    from zero_latency_yolo_tpu_torch.models.weights import (
+        infer_spec_from_params, load_params)
+    from zero_latency_yolo_tpu_torch.ops import conv1x1_cuda
+    from zero_latency_yolo_tpu_torch.train.eval import evaluate
+    from zero_latency_yolo_tpu_torch.train.loop import synthetic_batches
+    lines = []
+    launches = reset_and_read(lambda: lines.extend(_in_process(
+        eval_artifact, ["--weights", TOOLS_WEIGHTS, "--task", "blob",
+                        "--images", "64"])))
+    simt = conv1x1_cuda.launches_by_route["simt"]
+    require_launched(launches, "eval_artifact", tensor_cores=False)
+    require(simt == launches["conv1x1_bias_act"],
+            f"f32 1x1 convs off the CUDA-core route: {launches}, simt {simt}")
+    line = lines[-1]
+    params = load_params(str(TOOLS_WEIGHTS))
+    spec = infer_spec_from_params(params)
+    images, targets = next(synthetic_batches(64, 416, seed=777))
+    plain = evaluate(params, spec, images, targets, batch=4, device=DEVICE,
+                     plain=True)
+    bf16 = {}
+    l16 = reset_and_read(lambda: bf16.update(evaluate(
+        params, spec, images, targets, batch=4, device=DEVICE,
+        dtype=torch.bfloat16)))
+    require_launched(l16, "eval_artifact bf16")
+    print(f"eval_artifact (f32, {TOOLS_WEIGHTS.name}, blob, 64 images at "
+          f"416): {line}; plain versions mAP {plain['mAP']:.4f} mAP50_95 "
+          f"{plain['mAP50_95']:.4f}; launches {launches} (1x1 on the "
+          f"CUDA-core route {simt}); bf16 mAP {bf16['mAP']:.4f} mAP50_95 "
+          f"{bf16['mAP50_95']:.4f}, launches {l16}", flush=True)
+    require(line["mAP"] == round(plain["mAP"], 4)
+            and line["mAP50_95"] == round(plain["mAP50_95"], 4),
+            "eval_artifact with the kernels differs from the plain versions")
+    require(line["mAP"] > 0.5, "eval_artifact vacuous")
+    return ({k: launches[k] + l16[k] for k in launches},
+            {"line": line, "bf16": {k: bf16[k] for k in ("mAP", "mAP50_95")}})
+
+
+def _variant_artifact(torch, tmp: Path) -> None:
+    """train_variant_artifact with a few steps; the deployed config's
+    engine loads the artifact and serves task frames."""
+    from zero_latency_yolo_tpu_torch import train_variant_artifact
+    from zero_latency_yolo_tpu_torch.runtime.engine import (InferenceEngine,
+                                                            InferenceRequest)
+    out = tmp / "variant.npz"
+    line = _in_process(train_variant_artifact, [
+        "--variant", "yolov8n", "--stage1-steps", "3", "--steps", "3",
+        "--size", "416", "--batch", "8", "--eval-images", "16", "--out",
+        out])[-1]
+    cfg = load_config(CONFIG)
+    cfg.model_path = str(out)
+    engine = InferenceEngine(cfg, device=DEVICE)
+    require(not engine.simulation, "the artifact did not load")
+    frames = task_frames(8, 416, seed=5)
+    results = engine.infer_batch(frame_requests(InferenceRequest,
+                                                list(frames)))
+    require(len(results) == 8, "the artifact's engine lost results")
+    print(f"train_variant_artifact: {line}; the deployed config's engine "
+          f"served it: {sum(len(r.detections) for r in results)} detections "
+          f"on 8 task frames", flush=True)
+
+
+def _flywheel(torch, tmp: Path) -> dict:
+    """The flywheel on a capture directory that the port's capture wrote
+    from the deployed engine's results on task frames: rc 0, the promote
+    decision printed."""
+    from zero_latency_yolo_tpu_torch import flywheel
+    from zero_latency_yolo_tpu_torch.runtime.capture import DatasetCapture
+    from zero_latency_yolo_tpu_torch.runtime.engine import (InferenceEngine,
+                                                            InferenceRequest)
+    cap_dir = tmp / "capture"
+    cap = DatasetCapture(str(cap_dir), sample_every=1, max_images=1000,
+                         min_confidence=0.25)
+    engine = InferenceEngine(load_config(CONFIG), device=DEVICE)
+    frames = list(task_frames(FLYWHEEL_FRAMES, 416, seed=321))
+    for i0 in range(0, len(frames), 8):
+        chunk = frames[i0:i0 + 8]
+        reqs = [InferenceRequest(client_id=1, frame_id=i0 + i, timestamp=i,
+                                 width=416, height=416, data=f)
+                for i, f in enumerate(chunk)]
+        for r in reqs:
+            cap.offer_keyframe(r.client_id, r.frame_id, r.data)
+        for r, res in zip(reqs, engine.infer_batch(reqs)):
+            cap.on_result(r.client_id, r.frame_id, res.detections)
+            deadline = time.monotonic() + 10
+            while cap.written <= r.frame_id and time.monotonic() < deadline:
+                time.sleep(0.005)
+    cap.stop()
+    require(cap.written == FLYWHEEL_FRAMES,
+            f"the capture wrote {cap.written} of {FLYWHEEL_FRAMES}")
+    live = tmp / "live.npz"
+    live.write_bytes(TOOLS_WEIGHTS.read_bytes())
+    t0 = time.perf_counter()
+    line = _in_process(flywheel, [
+        "--capture-dir", cap_dir, "--base", TOOLS_WEIGHTS, "--out",
+        tmp / "candidate.npz", "--steps", "3", "--batch", "4", "--size",
+        "416", "--no-distill", "--holdout-frac", "0.3", "--allow-small-eval",
+        "--min-gain", "-1", "--promote", live])[-1]
+    print(f"flywheel ({cap.written} frames captured by the port's capture, "
+          f"{time.perf_counter() - t0:.1f} s): passed {line['passed']}, "
+          f"promoted {line['promoted']}; {line}", flush=True)
+    require(line["passed"] and line["promoted"]
+            and live.read_bytes() == (tmp / "candidate.npz").read_bytes(),
+            "the flywheel did not promote its candidate")
+    return line
+
+
 def main() -> None:
     with Phase("device"):
         import torch
@@ -4213,6 +4677,9 @@ def main() -> None:
     with Phase("tools"):
         tools = tools_phase(torch, smi_line)
 
+    with Phase("train mesh and training tools"):
+        train_mesh = train_mesh_phase(torch, smi_line)
+
     # The int8 conv's own path is the int8 path; every other kernel's is
     # the main path of phase 4.
     launches["conv_int8"] = int8["launches"]["conv_int8"]
@@ -4232,7 +4699,8 @@ def main() -> None:
                    "train_eval": train["launches"][n],
                    "mesh": mesh["launches"][n],
                    "detect": tools["detect"][n],
-                   "loadtest_server": tools["loadtest_server"][n]}
+                   "loadtest_server": tools["loadtest_server"][n],
+                   "train_tools_eval": train_mesh["launches"][n]}
                for n in KERNELS}
     s640 = ladder["report"]
     print("kernels: " + ", ".join(

@@ -27,7 +27,10 @@ mesh on the card: virtual meshes (2x1, 1x2, 2x2) over cuda:0 against the
 single-device engine, hosted and cached; both kernels against their plain
 versions at every channel-sharded shape of yolov8n at 416 and yolov8s at
 640; dispatch on a mesh returns before the device is done; and a real
-two-card mesh, which skips on fewer than two cards.
+two-card mesh, which skips on fewer than two cards. The training mesh on
+the card: the meshed step on virtual meshes over cuda:0 against the
+single-device step, and on a real two-card 2x1 mesh (skips on fewer than
+two cards).
 
 Needs an NVIDIA GPU and nvcc: marked `cuda` and skipped elsewhere. This file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -1073,6 +1076,70 @@ def test_two_card_mesh_matches_single_device(dev, monkeypatch, data, model):
     got = eng.complete(_from_cache(eng, cache, _requests(8, seed=7),
                                    [r.client_id for r in reqs]))
     _close_dets(_dets(got), want, 1e-3)
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
+def test_virtual_train_mesh_matches_single_device_on_the_card(dev, shape):
+    """The meshed train step over cuda:0 repeated (f32, yolov8p at 64,
+    batch 4, 3 steps of the const chain with the EMA) against the
+    single-device step on the card: losses within 1e-5 of max(|x|, 1); the
+    joined params and EMA, per leaf, ||mesh - single|| within
+    chip_smoke.TRAIN_TOL of ||single||; every copy bit-equal. Not an
+    element-wise gate: Adam's first update is close to lr * sign(g) where
+    |g| is near its eps, so such elements follow the last bits of their
+    gradients, which cuDNN's algorithm for a halved batch or Cout moves
+    (measured on a 1x2 mesh: one element 4.2e-5 off in a leaf whose max is
+    0.32), as chip_smoke.py's fixture gate says."""
+    _train_mesh_vs_single(shape, [torch.device("cuda", 0)] * 2)
+
+
+def test_two_card_train_mesh_matches_single_device(dev):
+    """A real 2x1 training mesh over cuda:0 and cuda:1 (each row's forward
+    and backward on its card, the head maps and gradients copied across
+    the cards): as the single-device step, with the gates of the virtual
+    mesh's test."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    _train_mesh_vs_single((2, 1), [torch.device("cuda", i) for i in range(2)])
+
+
+def _train_mesh_vs_single(shape, devices):
+    from chip_smoke import TRAIN_TOL, copies_differ
+    from zero_latency_yolo_tpu_torch.models.weights import (
+        train_params_from_jax, tree_leaves)
+    from zero_latency_yolo_tpu_torch.models.yolov8 import get_spec, init_params
+    from zero_latency_yolo_tpu_torch.parallel import mesh as pt_mesh
+    from zero_latency_yolo_tpu_torch.train.loop import synthetic_batches
+    from zero_latency_yolo_tpu_torch.train.optim import make_optimizer
+    from zero_latency_yolo_tpu_torch.train.step import (init_train_state,
+                                                         make_train_step)
+    spec = get_spec("yolov8p", 4)
+    gen = synthetic_batches(4, 64, seed=0)
+    batches = [next(gen) for _ in range(3)]
+    runs = []
+    for mesh in (None, pt_mesh.make_mesh(*shape, devices)):
+        tx = make_optimizer(1e-3)
+        fn = make_train_step(spec, tx, (64, 64), dtype=torch.float32,
+                             mesh=mesh)
+        state = fn.shard_state(init_train_state(train_params_from_jax(
+            init_params(0, spec, folded=False), device="cuda:0"), tx,
+            ema=True))
+        losses = []
+        for images, targets in batches:
+            state, m = fn(state, images, targets)
+            losses.append(float(m["loss"]))
+        if mesh is not None:
+            assert copies_differ(torch, state)[0] == 0
+            state = pt_mesh.join_state(state)
+        runs.append((losses, [p.detach().cpu().numpy() for p in
+                              tree_leaves(state.params)
+                              + tree_leaves(state.ema_params)]))
+    (want_l, want), (got_l, got) = runs
+    for a, b in zip(got_l, want_l):
+        assert abs(a - b) <= 1e-5 * max(abs(b), 1.0), (got_l, want_l)
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        assert np.linalg.norm(a - b) <= TRAIN_TOL * np.linalg.norm(b), i
 
 
 # ---------------------------------------------------------------------------

@@ -57,6 +57,17 @@ def test_isolation_covers_the_operator_tools():
         "utils/device", "ops/launches")} <= names
 
 
+def test_isolation_covers_the_training_tools():
+    """The training tools and the modules of the training mesh are among
+    the files the import checks above walk."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {f"zero_latency_yolo_tpu_torch/{m}.py" for m in (
+        "train_step_bench", "eval_artifact", "train_variant_artifact",
+        "flywheel", "assigner_compare", "width_accuracy", "coco_to_yolo",
+        "utils/bench_util", "parallel/mesh", "train/step",
+        "train/checkpoint", "train/loop")} <= names
+
+
 def test_package_imports_with_jax_blocked():
     """Every module of the port imports in a process where `import jax` and
     `import zero_latency_yolo_tpu` fail."""

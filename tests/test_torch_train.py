@@ -500,15 +500,28 @@ def test_distill_step_needs_the_teacher():
 
 
 @pytest.mark.parametrize("mesh", [(2, 1), (1, 2), (4, 2)])
-def test_a_mesh_is_refused(mesh):
-    with pytest.raises(ValueError, match="not implemented in the PyTorch "
-                                         "port: mesh_data/mesh_model > 1"):
-        pstep.make_train_step(SPEC, poptim.make_optimizer(1e-3),
-                              (SIZE, SIZE), mesh_data=mesh[0],
-                              mesh_model=mesh[1])
-    with pytest.raises(ValueError, match="mesh_data/mesh_model"):
-        ploop.train(steps=1, mesh_data=mesh[0], mesh_model=mesh[1],
-                    device="cpu")
+def test_a_mesh_trains(mesh, monkeypatch, capsys):
+    """make_train_step(mesh_data=, mesh_model=) and loop.train build the
+    mesh and run one step on it (a virtual mesh: available_devices replaced
+    by repeats of the CPU); the loop returns the joined state."""
+    from zero_latency_yolo_tpu_torch.parallel import mesh as pmesh
+    monkeypatch.setattr(pmesh, "available_devices",
+                        lambda device="cuda": [torch.device("cpu")] * 8)
+    opt = poptim.make_optimizer(1e-3)
+    fn = pstep.make_train_step(SPEC, opt, (SIZE, SIZE), dtype=torch.float32,
+                               mesh_data=mesh[0], mesh_model=mesh[1])
+    assert fn.mesh.shape == {"data": mesh[0], "model": mesh[1]}
+    state = fn.shard_state(pstep.init_train_state(
+        pw.train_params_from_jax(_tree()), opt))
+    assert len(state.states) == mesh[0] * mesh[1]
+    images, targets = next(jloop.synthetic_batches(4, SIZE))
+    state, m = fn(state, images, targets)
+    assert state.step == 1 and np.isfinite(float(m["loss"]))
+    out = ploop.train(steps=1, batch=4, mesh_data=mesh[0],
+                      mesh_model=mesh[1], device="cpu")
+    assert f"train mesh {mesh[0]}x{mesh[1]}" in capsys.readouterr().out
+    assert isinstance(out, pstep.TrainState) and out.step == 1
+    assert all(torch.isfinite(p).all() for p in pw.tree_leaves(out.params))
 
 
 # ---------------------------------------------------------------------------

@@ -448,6 +448,24 @@ def tree_leaves(tree: Params) -> List[Any]:
     return [tree]
 
 
+def tree_from_leaves(like: Params, leaves: List[Any]) -> Params:
+    """The inverse of `tree_leaves`: `like`'s structure over `leaves`, given
+    in `tree_leaves`' order."""
+    it = iter(leaves)
+
+    def walk(node):
+        if isinstance(node, dict):
+            out = {k: walk(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return next(it)
+    tree = walk(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return tree
+
+
 def train_params_from_jax(tree: Params, device="cpu") -> Params:
     """The JAX package's tree (NumPy, HWIO; unfolded {w, bn: {gamma, beta,
     mean, var}} or folded {w, b} blocks) as f32 leaf tensors on `device`,

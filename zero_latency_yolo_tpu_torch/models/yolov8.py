@@ -502,6 +502,29 @@ def _train_conv(p: Params, x: torch.Tensor, stride: int = 1, act: bool = True,
     return y.to(dtype)
 
 
+def tp_train_conv(p: Params, x: torch.Tensor, stride: int = 1,
+                  act: bool = True, dtype=torch.float32) -> torch.Tensor:
+    """`_train_conv` under tensor parallelism, the `conv_fn` of a training
+    mesh with model > 1 (`parallel/mesh.py` `train_row_params`): a
+    channel-sharded block ({"shards": [...]}) runs each device's
+    output-channel slice of the kernel and bias on that device, with the
+    BN affine on the same slice of that device's copy of the (replicated)
+    BN vectors, and the slices are gathered along channels on x's device.
+    Autograd flows back across the copies, so each device's BN copy gets
+    the gradient of its slice. A whole block runs `_train_conv` as it is."""
+    if "shards" not in p:
+        return _train_conv(p, x, stride=stride, act=act, dtype=dtype)
+    ys = []
+    for col, q in enumerate(p["shards"]):
+        if "bn" in q:
+            n = q["w"].shape[-1]
+            q = dict(q, bn={k: v[col * n:(col + 1) * n]
+                            for k, v in q["bn"].items()})
+        ys.append(_train_conv(q, x.to(q["w"].device), stride=stride,
+                              act=act, dtype=dtype))
+    return torch.cat([y.to(x.device) for y in ys], dim=-1)
+
+
 def _train_c2f(p: Params, x: torch.Tensor, shortcut: bool, cv,
                split: bool = False) -> torch.Tensor:
     """C2f over training-form params, as the JAX package's `_c2f`: with

@@ -1,4 +1,5 @@
-"""Device mesh and tensor-parallel placement for multi-device serving.
+"""Device mesh and tensor-parallel placement for multi-device serving and
+training.
 
 The PyTorch counterpart of the JAX package's `parallel/mesh.py`. A mesh is a
 (data, model) grid of `torch.device`s:
@@ -18,6 +19,10 @@ device (its lead), which receives the gathered channels; each sharded conv
 sends its input to the devices of the row. Replicated leaves run whole on
 the lead.
 
+A training state is placed one `TrainState` a device (`shard_state`, below;
+`train/step.py` runs it): the same rules shard the training form's kernels
+and biases, and every other leaf is copied to every device.
+
 An explicit device list may repeat a device: a virtual mesh, which runs the
 mesh's code path (the batch split, the channel slices and gathers, the
 cross-shard cache copies) on one card or on the CPU, as the JAX tests run
@@ -33,6 +38,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..models.weights import tree_from_leaves, tree_leaves, tree_map
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -187,3 +194,132 @@ def row_params(mesh: Mesh, trees: Sequence[Params], row: int) -> Params:
         return {k: walk([n[k] for n in nodes]) for k in first}
 
     return walk(own)
+
+
+# ---------------------------------------------------------------------------
+# A training state on a mesh: the JAX package's `train/step.py`
+# `shard_state` / `shard_teacher`, over the training form (HWIO f32 leaves
+# that require grad, BN unfolded). One `TrainState` a device, row-major: a
+# leaf that `_leaf_spec` shards holds its model column's slice of the output
+# channels (kernels on O, biases of O >= 4 * model), every other leaf (BN
+# vectors, the head tips, small convs) a whole copy. The optimizer's moments
+# and the EMA mirror the params leaf for leaf; the step count is on every
+# copy.
+# ---------------------------------------------------------------------------
+
+def model_axis(spec: tuple) -> Optional[int]:
+    """The axis a leaf's spec shards over "model", or None (replicated)."""
+    return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
+
+
+def _column(leaf: torch.Tensor, spec: tuple, col: int, model: int,
+            device) -> torch.Tensor:
+    """A copy on `device` of what model column `col` holds of `leaf`: its
+    slice of the sharded axis, or the whole leaf. Always a copy, so that
+    the devices of a virtual mesh hold leaves of their own."""
+    leaf = leaf.detach()
+    axis = model_axis(spec)
+    if axis is not None:
+        n = leaf.shape[axis] // model
+        leaf = leaf.narrow(axis, col * n, n)
+    return leaf.to(device=device, copy=True)
+
+
+def shard_state(state, mesh: Mesh):
+    """Place a single-device `train/step.py` TrainState on the mesh: a
+    MeshTrainState of one TrainState a device (see above)."""
+    from ..train.optim import AdamWState
+    from ..train.step import MeshTrainState, TrainState
+    specs = param_shardings(state.params, mesh)
+    spec_leaves = tree_leaves(specs)
+    opt = state.opt_state
+    states = []
+    for row in mesh.devices:
+        for col, dev in enumerate(row):
+            def place(leaves):
+                return [_column(x, s, col, mesh.model, dev)
+                        for x, s in zip(leaves, spec_leaves)]
+            params = [p.requires_grad_(True)
+                      for p in place(tree_leaves(state.params))]
+            ema = (None if state.ema_params is None else tree_from_leaves(
+                state.ema_params, place(tree_leaves(state.ema_params))))
+            states.append(TrainState(
+                params=tree_from_leaves(state.params, params),
+                opt_state=AdamWState(count=opt.count, mu=place(opt.mu),
+                                     nu=place(opt.nu),
+                                     sched_count=opt.sched_count),
+                step=int(state.step), ema_params=ema))
+    return MeshTrainState(mesh=mesh, specs=specs, states=states)
+
+
+def join_leaves(mstate, parts: Sequence[List[torch.Tensor]],
+                device=None) -> List[torch.Tensor]:
+    """One whole tree's leaves (in `tree_leaves` order, on `device`, default
+    the mesh's first device) from `parts`, the leaves of data row 0's
+    devices in column order: each sharded leaf joined along its sharded
+    axis, every other leaf the lead's copy."""
+    mesh = mstate.mesh
+    device = mesh.devices[0][0] if device is None else torch.device(device)
+    out = []
+    for i, spec in enumerate(tree_leaves(mstate.specs)):
+        axis = model_axis(spec)
+        if axis is None:
+            out.append(parts[0][i].detach().to(device=device, copy=True))
+        else:
+            out.append(torch.cat([p[i].detach().to(device) for p in parts],
+                                 axis))
+    return out
+
+
+def join_state(mstate, device=None):
+    """The single-device TrainState of a MeshTrainState, on `device`
+    (default: the mesh's first device), from data row 0's states
+    (`join_leaves`). Checkpoints and eval use it."""
+    from ..train.optim import AdamWState
+    from ..train.step import TrainState
+    row0 = mstate.states[:mstate.mesh.model]
+
+    def join(parts):
+        return join_leaves(mstate, parts, device)
+
+    lead = row0[0]
+    params = [p.requires_grad_(True) for p in join(
+        [tree_leaves(s.params) for s in row0])]
+    ema = (None if lead.ema_params is None else tree_from_leaves(
+        lead.ema_params, join([tree_leaves(s.ema_params) for s in row0])))
+    opt = lead.opt_state
+    return TrainState(
+        params=tree_from_leaves(lead.params, params),
+        opt_state=AdamWState(count=opt.count,
+                             mu=join([s.opt_state.mu for s in row0]),
+                             nu=join([s.opt_state.nu for s in row0]),
+                             sched_count=opt.sched_count),
+        step=int(lead.step), ema_params=ema)
+
+
+def shard_teacher(params: Params, mesh: Mesh) -> List[Params]:
+    """A distillation teacher (a training-form or NumPy tree) replicated:
+    one f32 copy on each data row's lead, in row order."""
+    return [tree_map(lambda a: torch.as_tensor(a, dtype=torch.float32)
+                     .detach().to(lead), params) for lead in mesh.leads]
+
+
+def train_row_params(mstate, row: int) -> Params:
+    """The training-form tree data row `row` runs (with `models/yolov8.py`
+    `tp_train_conv`): each sharded conv block as {"shards": [the block of
+    each device of the row, in column order]}, each whole block the lead
+    device's."""
+    mesh = mstate.mesh
+    own = [s.params for s in
+           mstate.states[row * mesh.model:(row + 1) * mesh.model]]
+
+    def walk(nodes, spec):
+        first = nodes[0]
+        if isinstance(first, list):
+            return [walk([n[i] for n in nodes], spec[i])
+                    for i in range(len(first))]
+        if isinstance(first.get("w"), torch.Tensor):
+            return {"shards": list(nodes)} if spec["w"] else first
+        return {k: walk([n[k] for n in nodes], spec[k]) for k in first}
+
+    return walk(own, mstate.specs)

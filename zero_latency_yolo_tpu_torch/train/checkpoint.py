@@ -11,7 +11,12 @@ fallback only (there is no orbax on the card's machine):
 
 written to `ckpt_<step>.tmp` and renamed into place, keeping the newest
 `max_to_keep`. The keys, layouts and leaf order are the JAX package's, so a
-checkpoint written by either package resumes in the other.
+checkpoint written by either package resumes in the other. A state on a mesh
+(`train/step.py` MeshTrainState) is saved joined (`parallel/mesh.py`
+`join_state`: the sharded leaves whole again), the same files as a
+single-device state's, and restoring into a meshed template places the
+state on the template's mesh, as the JAX loop re-shards after a restore; so
+a checkpoint resumes in either layout.
 """
 
 from __future__ import annotations
@@ -26,9 +31,10 @@ import numpy as np
 from ..models.weights import (flatten, train_params_from_jax,
                               train_params_to_numpy, tree_leaves, tree_map,
                               unflatten)
+from ..parallel.mesh import join_state, shard_state
 from ..utils.logging import get_logger
 from .optim import AdamW
-from .step import TrainState
+from .step import MeshTrainState, TrainState
 
 log = get_logger("checkpoint")
 
@@ -44,7 +50,9 @@ class CheckpointManager:
                       if d.startswith("ckpt_") and not d.endswith(".tmp"))
 
     # ------------------------------------------------------------------ save
-    def save(self, state: TrainState, tx: AdamW) -> int:
+    def save(self, state, tx: AdamW) -> int:
+        if isinstance(state, MeshTrainState):
+            state = join_state(state)
         step = int(state.step)
         path = os.path.join(self.directory, f"ckpt_{step:08d}")
         tmp = path + ".tmp"
@@ -71,13 +79,16 @@ class CheckpointManager:
         ckpts = self._ckpts()
         return int(ckpts[-1].split("_")[1]) if ckpts else None
 
-    def restore(self, template: TrainState, tx: AdamW,
-                step: Optional[int] = None) -> Optional[TrainState]:
-        """Restore onto the device of `template`'s params; its EMA
-        presence decides the EMA's (the JAX package's rules: a file's EMA
-        is dropped when the run has none, and seeded from the restored
-        params when the run has one and the file not). Returns None when
-        no checkpoint exists."""
+    def restore(self, template, tx: AdamW, step: Optional[int] = None):
+        """Restore onto the device of `template`'s params, or onto its mesh
+        for a MeshTrainState template; its EMA presence decides the EMA's
+        (the JAX package's rules: a file's EMA is dropped when the run has
+        none, and seeded from the restored params when the run has one and
+        the file not). Returns None when no checkpoint exists."""
+        if isinstance(template, MeshTrainState):
+            state = self.restore(template.states[0], tx, step)
+            return None if state is None else shard_state(state,
+                                                          template.mesh)
         target = step if step is not None else self.latest_step()
         if target is None:
             return None

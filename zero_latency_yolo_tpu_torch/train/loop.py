@@ -1,12 +1,15 @@
 """Fine-tuning entry point: data pipeline + train loop + checkpoint/resume.
 
 The port's counterpart of the JAX package's `train/loop.py`, with the same
-arguments and flags, on one CUDA device (or the CPU when asked):
+arguments and flags, on the CUDA devices (or the CPU when asked):
 
     python -m zero_latency_yolo_tpu_torch.train.loop --steps 200 \
         --variant yolov8p --size 64 --batch 8 --ckpt-dir checkpoints/
 
 `--device` (default cuda) takes the place of the JAX loop's `--platform`.
+`--mesh-data` / `--mesh-model` train on a (data, model) mesh of the CUDA
+devices (`train/step.py`); with fewer devices than the mesh the loop warns
+and trains on one device.
 Data via --data: a YOLO-convention directory (images/ + labels/*.txt, see
 train/data.py), .npz shards (`images` (N,H,W,3) uint8, `targets` (N,M,5)
 [class,cx,cy,w,h] normalized, class=-1 padding), or the built-in synthetic
@@ -264,20 +267,22 @@ def train(variant: str = "yolov8p", num_classes: int = 4, size: int = 64,
           log_every: int = 10, device: str = "cuda"):
     """Train and return the state. The arguments are the JAX package's
     `train(...)`; `device` is where the step runs (cuda unless the caller
-    asks for the CPU). The step computes in bf16, as the JAX loop's."""
+    asks for the CPU). The step computes in bf16, as the JAX loop's. On a
+    mesh the state returned is the trained one joined onto the mesh's first
+    device (`parallel/mesh.py` `join_state`)."""
     import torch
 
     from ..models.weights import (infer_spec_from_params, load_params,
                                   train_params_from_jax)
     from ..models.yolov8 import get_spec, init_params
+    from ..parallel.mesh import join_state
     from .checkpoint import CheckpointManager
     from .optim import make_optimizer
-    from .step import check_single_device, init_train_state, make_train_step
+    from .step import init_train_state, make_train_step, train_mesh
 
     if schedule not in ("const", "cosine"):  # fail before params build/load
         raise ValueError(f"unknown lr schedule {schedule!r} "
                          "(expected 'const' or 'cosine')")
-    check_single_device(mesh_data, mesh_model)
     if str(device).startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' (--device cpu) "
                            "to train on the CPU")
@@ -303,18 +308,25 @@ def train(variant: str = "yolov8p", num_classes: int = 4, size: int = 64,
               f"w_kd={distill_weight} w_box={distill_box_weight} "
               f"T={distill_temp}")
 
+    mesh = train_mesh(mesh_data, mesh_model, device)
     sizes = tuple(int(s) for s in multiscale) if multiscale else (size,)
     for s in sizes:
         if s % 32:
             raise ValueError(f"train size {s} must be a multiple of 32 "
                              "(stride-32 FPN)")
-    step_fns = {s: make_train_step(spec, tx, (s, s), remat=remat,
+    step_fns = {s: make_train_step(spec, tx, (s, s), mesh=mesh, remat=remat,
                                    ema_decay=ema_decay, assigner=assigner,
                                    teacher_spec=t_spec,
                                    distill_weight=distill_weight,
                                    distill_box_weight=distill_box_weight,
                                    distill_temp=distill_temp)
                 for s in sizes}
+    step_fn = step_fns[sizes[0]]
+    if mesh is not None:
+        print(f"train mesh {mesh.describe()}", flush=True)
+    state = step_fn.shard_state(state)
+    if t_params is not None:
+        t_params = step_fn.shard_teacher(t_params)
 
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     if mgr is not None:
@@ -374,7 +386,7 @@ def train(variant: str = "yolov8p", num_classes: int = 4, size: int = 64,
             mgr.save(state, tx)
     if mgr is not None:
         mgr.save(state, tx)
-    return state
+    return state if mesh is None else join_state(state)
 
 
 def main(argv=None) -> None:

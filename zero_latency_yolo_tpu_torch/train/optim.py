@@ -67,6 +67,12 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     return schedule
 
 
+def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """optax's global norm: sqrt of the sum of each leaf's sum of squares."""
+    return torch.sqrt(torch.sum(torch.stack([torch.sum(g * g)
+                                             for g in grads])))
+
+
 @dataclass
 class AdamWState:
     """optax's state of the chain: ScaleByAdamState(count, mu, nu) and, with
@@ -97,14 +103,17 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor],
-               state: AdamWState, params: Sequence[torch.Tensor]) -> None:
-        """Apply one update to `params` (in place) and advance `state`."""
+               state: AdamWState, params: Sequence[torch.Tensor],
+               g_norm: Optional[torch.Tensor] = None) -> None:
+        """Apply one update to `params` (in place) and advance `state`.
+        g_norm: the global norm to clip by, when the leaves are one device's
+        part of a larger tree (a mesh); default: the norm of `grads`."""
         grads = list(grads)
         params = list(params)
         # clip_by_global_norm: sqrt of the sum of each leaf's sum of squares;
         # every leaf kept below max_norm, else (g / norm) * max_norm.
-        g_norm = torch.sqrt(torch.sum(torch.stack(
-            [torch.sum(g * g) for g in grads])))
+        if g_norm is None:
+            g_norm = global_norm(grads)
         keep = g_norm < CLIP_NORM
         grads = [torch.where(keep, g, g / g_norm * CLIP_NORM) for g in grads]
         # scale_by_adam: the moments, then the bias-corrected direction.
@@ -179,5 +188,5 @@ def make_optimizer(lr: float, schedule: str = "const", steps: int = 100,
     return AdamW(float(lr))
 
 
-__all__ = ["AdamW", "AdamWState", "make_optimizer",
+__all__ = ["AdamW", "AdamWState", "global_norm", "make_optimizer",
            "warmup_cosine_decay_schedule"]
