@@ -129,8 +129,9 @@ and the script exits non-zero:
    batch-8 and batch-16 steps, in bf16 and f32 (int32 accumulators equal,
    outputs within one ulp), and once with a dynamic device scale; its
    back-to-back time, plain time, bound (bytes at 3.35 TB/s, int8
-   operations at 1,979 TOPS) and torch._int_mm's time on the 1x1 calls it
-   accepts. The bf16 int8 forward against the bf16 and f32 forwards
+   operations at 1,979 TOPS) and the library's time on every call
+   (torch._int_mm on a 1x1 call; int8_im2col then torch._int_mm on the
+   others, checked against the kernel's accumulators). The bf16 int8 forward against the bf16 and f32 forwards
    without int8 (mean probability error and median box error under 0.05,
    tests/test_quant.py's limits), and the detections against bf16 (not
    gated). The int8 path through the entry points (infer_batch, dispatch /
@@ -257,12 +258,36 @@ and the script exits non-zero:
    (`runtime/capture.py`) from the deployed engine's results on
    FLYWHEEL_FRAMES task frames: rc 0, the candidate promoted (its evals
    are `eval_artifact` processes on the card), the decision printed.
-17. report: a `kernels:` line, one JSON line of kernel numbers (launches on
+17. measurement tools: each `python -m zero_latency_yolo_tpu_torch.<tool>`,
+   at yolov8n 416 bf16 on 600x800 frames unless its own rows name other
+   shapes (MEASURE_* constants); each must exit 0 with every row present.
+   step_ladder as a process (batches MEASURE_LADDER), its ladder written
+   under build/measure/ with the card's name and power limit; trace_analyze
+   as a process (batch 8, 5 steps): its device time of each port kernel
+   within TRACE_TOL of profile_step's on the same step, and its launches
+   over the 5 steps 5 times the step's (24 : 39 : 1 in the slice form,
+   50 : 47 : 1 split; a total, so a stray launch shows). In
+   this process, every count reset just before: conv1x1_compare at batch
+   16 (per-call rows covering every 1x1 call of the step; the library
+   route launches no 1x1 kernel, the kernel route the step's count; in f32
+   on game frames the two routes' packed outputs agree, counts and classes
+   equal, boxes and scores within 1e-3); layout_compare at batch 32 (in
+   f32 the four select x c2f combos agree within that gate); perf_sweep and
+   width_ladder at batch 32; floor_split_bench and pack_proxy at their
+   JAX shapes; spmd_overhead on a virtual 2x1 over the card (equal-total,
+   one rep: the arms' f32 results equal); the counts read (the `tools`
+   path). Then over the ladder just written: lane_physics at 8 and 64
+   streams x 60 fps, MEASURE_LANE_S each, every request accounted for;
+   wire_ceiling at 8 and 16 streams x 60 fps (5 s a rung), every offered
+   frame served or counted (the engine's drops, the server socket's count
+   or, where it is the only count, the machine's Udp.RcvbufErrors), short
+   by at most the streams' frames in flight.
+18. report: a `kernels:` line, one JSON line of kernel numbers (launches on
    the main path (the int8 path for the int8 conv), and by path: main,
    frame cache, each server load, the ladder, each variant, the adaptive
    load, the int8 path, its steps and its server loads, the train eval,
-   the mesh path, detect, the load test's server and the training tools'
-   evals; each kernel's
+   the mesh path, detect, the load test's server, the training tools'
+   evals and the measurement tools; each kernel's
    numbers at the yolov8s 640 batch-16 shapes, the int8 conv's at the int8
    batch-16 shapes), and the result line `{"ok": true, "device": {...}}`
    last.
@@ -332,13 +357,9 @@ KERNELS = {
 # The kernels every path without int8 launches (the int8 conv runs only
 # with tpu.quantize_int8).
 PATH3 = ("nms_keep", "conv1x1_bias_act", "bias_silu")
-# The device functions of each kernel, as the profiler names them.
-KERNEL_SYMBOLS = {
-    "nms_keep": ("nms_keep_kernel",),
-    "conv1x1_bias_act": ("conv1x1_wgmma_kernel", "mm_bias_act_kernel"),
-    "bias_silu": ("bias_silu_vec_kernel", "bias_silu_kernel"),
-    "conv_int8": ("conv_int8_kernel",),
-}
+# The device functions of each kernel, as the profiler names them, are
+# `zero_latency_yolo_tpu_torch/ops/launches.py` KERNEL_SYMBOLS (shared with
+# trace_analyze).
 
 
 # Server phase: clients, their frame rate and size (raw RGB that fits one
@@ -417,26 +438,10 @@ def task_frames(n: int, size: int, seed: int, max_boxes: int = 4) -> np.ndarray:
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over `iters` calls (CUDA events). The calls
-    are queued behind a spin of the GPU (torch.cuda._sleep) long enough for
-    the host to enqueue them all, so the host's launch overhead does not
-    show as idle time between the launches the events bracket."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(2.0 * iters * host_ms + 1.0, 2000.0) * 2e6))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean device time of fn() over `iters` calls (CUDA events behind a
+    spin of the GPU: `utils/bench_util.py` `event_ms`)."""
+    from zero_latency_yolo_tpu_torch.utils.bench_util import event_ms
+    return event_ms(fn, iters, warmup)
 
 
 def step_device_ms(torch, fn, reps: int = 5) -> float:
@@ -469,12 +474,14 @@ def profile_step(torch, fn, iters: int = 5, top: int = 0,
     profile, {port kernel: device ms}) per call and prints the `top`
     kernels."""
     from zero_latency_yolo_tpu_torch.bench_host import step_profile
+    from zero_latency_yolo_tpu_torch.ops.launches import (KERNEL_SYMBOLS,
+                                                          kernel_of)
     prof = step_profile(torch, fn, iters, nms_stages)
     for ms, n, key in prof["rows"][:top]:
         print(f"  {ms:8.4f} ms/step  {n:4d} launches/step  {key[:90]}")
     own = {name: sum(ms for ms, _, key in prof["rows"]
-                     if any(sym in key for sym in syms))
-           for name, syms in KERNEL_SYMBOLS.items()}
+                     if kernel_of(key) == name)
+           for name in KERNEL_SYMBOLS}
     return prof, own
 
 
@@ -2175,13 +2182,34 @@ def int8_bound(x, w, k, stride, cout) -> tuple:
     return nbytes, 2.0 * m * cout * k * k * cin
 
 
+def int8_im2col(torch, xq, k: int, stride: int, kp: int):
+    """The (M, Kp) int8 columns of a quantized NHWC map for a k x k conv at
+    `stride` with SAME padding ((k-1)//2): (ky, kx, cin) order, zero-padded
+    to Kp, the order of the packed weight's K axis (ops/conv_int8_cuda.py),
+    so that columns @ w.T are the conv's int32 accumulators."""
+    import torch.nn.functional as F
+    b, h, w, cin = xq.shape
+    pad = (k - 1) // 2
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (w + 2 * pad - k) // stride + 1
+    xp = F.pad(xq, (0, 0, pad, pad, pad, pad))
+    cols = [xp[:, ky:ky + stride * (ho - 1) + 1:stride,
+               kx:kx + stride * (wo - 1) + 1:stride, :]
+            for ky in range(k) for kx in range(k)]
+    if kp > k * k * cin:
+        cols.append(xq.new_zeros(b, ho, wo, kp - k * k * cin))
+    return torch.cat(cols, dim=-1).reshape(b * ho * wo, kp)
+
+
 def check_int8_kernel(torch, calls_by_batch: dict) -> dict:
     """Every recorded int8 call against the plain version in bf16 (as the
     step gives it) and in f32 (the same input widened), plus the first
     call with a dynamic scale computed on the device; then, at the largest
     batch's calls, the kernel's back-to-back time, the plain version's, the
-    bound, and torch._int_mm's time on the 1x1 calls it accepts (the GEMM
-    alone over inputs already quantized: no quantize, no epilogue)."""
+    bound, and the library's time on every call it accepts, over inputs
+    already quantized (no quantize, no epilogue): torch._int_mm alone on a
+    1x1 call, and int8_im2col then torch._int_mm on the others (its int32
+    products checked against the kernel's accumulators, printed)."""
     from zero_latency_yolo_tpu_torch.ops import conv_int8_cuda as ci
     tops, not_equal, total, abs_err = {}, {}, {}, 0.0
     for batch, calls in calls_by_batch.items():
@@ -2210,7 +2238,8 @@ def check_int8_kernel(torch, calls_by_batch: dict) -> dict:
     lib_ms = ms_lib_calls = 0.0
     lib_calls = 0
     print(f"conv_int8 calls of the bf16 batch-{batch} step (us per call): H W "
-          "Cin Cout k stride | kernel plain _int_mm bound", flush=True)
+          "Cin Cout k stride | kernel plain library (_int_mm, after "
+          "int8_im2col where k > 1) bound", flush=True)
     for x, xs, w, ws, b, k, stride, act in calls_by_batch[batch]:
         cout = w.shape[0]
         t_k = time_ms(torch, lambda: ci.conv_int8(x, xs, w, ws, b, k, stride,
@@ -2219,17 +2248,32 @@ def check_int8_kernel(torch, calls_by_batch: dict) -> dict:
             x, xs, w, ws, b, k, stride, act), iters=3, warmup=1)
         nbytes, nops = int8_bound(x, w, k, stride, cout)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / PEAK_INT8_OPS_PER_S
-        t_lib = None
+        t_lib, same = None, ""
+        cin = x.shape[-1]
+        xq = ci.quantize_activations(x, xs).to(torch.int8)
         if k == 1 and stride == 1:
-            cin = x.shape[-1]
-            xq = ci.quantize_activations(x, xs).to(torch.int8).reshape(-1, cin)
+            x2 = xq.reshape(-1, cin)
             wt = w[:, :cin].contiguous().t()
-            try:
-                torch._int_mm(xq, wt)
-                t_lib = time_ms(torch, lambda: torch._int_mm(xq, wt))
-            except RuntimeError as e:
-                print(f"  torch._int_mm refuses {tuple(xq.shape)} x "
-                      f"{tuple(wt.shape)}: {str(e).splitlines()[0]}")
+
+            def lib():
+                return torch._int_mm(x2, wt)
+        else:
+            wt = w.t()
+
+            def lib():
+                return torch._int_mm(int8_im2col(torch, xq, k, stride,
+                                                 w.shape[1]), wt)
+        try:
+            got = lib()
+            t_lib = time_ms(torch, lib)
+            if k != 1:
+                acc = ci.conv_int8_acc(x, xs, w, k, stride)
+                same = (" (= the kernel's accumulators)"
+                        if torch.equal(got.view(acc.shape), acc)
+                        else " (DIFFERS from the kernel's accumulators)")
+        except RuntimeError as e:
+            print(f"  torch._int_mm refuses the k{k} s{stride} call on "
+                  f"{tuple(x.shape)}: {str(e).splitlines()[0]}")
         ms, plain_ms = ms + t_k, plain_ms + t_p
         bound_ms += 1e3 * max(t_bytes, t_ops)
         bytes_s, ops_s = bytes_s + t_bytes, ops_s + t_ops
@@ -2240,7 +2284,7 @@ def check_int8_kernel(torch, calls_by_batch: dict) -> dict:
         print(f"  {x.shape[1]:4d} {x.shape[2]:4d} {x.shape[3]:4d} {cout:4d} "
               f"{k} {stride} | {1e3 * t_k:8.2f} {1e3 * t_p:9.2f} "
               f"{'-' if t_lib is None else f'{1e3 * t_lib:8.2f}'} "
-              f"{1e6 * max(t_bytes, t_ops):8.2f}", flush=True)
+              f"{1e6 * max(t_bytes, t_ops):8.2f}{same}", flush=True)
     return dict(calls=len(calls_by_batch[batch]), batch=batch,
                 max_abs_err=abs_err, max_ulp=tops, not_bit_equal=not_equal,
                 elements=total, ms=ms, plain_ms=plain_ms,
@@ -2316,6 +2360,7 @@ def profilez_captures(web: int) -> dict:
     for code, out in results:
         print(f"/profilez capture: {code}, cost ms {out.get('cost_ms')}, "
               f"files {out.get('files')}", flush=True)
+    from zero_latency_yolo_tpu_torch.ops.launches import KERNEL_SYMBOLS
     named = []
     for code, out in results:
         if code != 200:
@@ -3750,14 +3795,15 @@ def detect_lines_gate(want: list, got: list, conf: float, nms: float,
     return out
 
 
-def _tool(tool: str, *args, timeout: float = 300.0):
+def _tool(tool: str, *args, timeout: float = 300.0, env=None):
     """`python -m zero_latency_yolo_tpu_torch.<tool> args --device DEVICE`
-    from the repo root; returns (rc, the JSON lines of its stdout, its
-    stderr)."""
+    from the repo root (`env`: variables added to this process's); returns
+    (rc, the JSON lines of its stdout, its stderr)."""
+    import os
     proc = subprocess.run(
         [sys.executable, "-m", f"zero_latency_yolo_tpu_torch.{tool}",
          *map(str, args), "--device", DEVICE], cwd=ROOT, capture_output=True,
-        text=True, timeout=timeout)
+        text=True, timeout=timeout, env={**os.environ, **(env or {})})
     lines = [json.loads(x) for x in proc.stdout.splitlines()
              if x.startswith("{")]
     return proc.returncode, lines, proc.stderr
@@ -4115,12 +4161,14 @@ def _params_np(state) -> list:
         state.params)]
 
 
-def _in_process(tool, argv: list) -> list:
-    """tool.main(argv) in this process; its JSON lines (rc 0 required)."""
+def _in_process(tool, argv: list, device: bool = True) -> list:
+    """tool.main(argv [+ --device DEVICE]) in this process; its JSON lines
+    (rc 0 required)."""
     import contextlib
     import io
     with contextlib.redirect_stdout(io.StringIO()) as out:
-        rc = tool.main([*map(str, argv), "--device", DEVICE])
+        rc = tool.main([*map(str, argv)]
+                       + (["--device", DEVICE] if device else []))
     require(rc == 0, f"{tool.__name__} returned {rc}")
     return [json.loads(x) for x in out.getvalue().splitlines()
             if x.startswith("{")]
@@ -4455,21 +4503,251 @@ def _flywheel(torch, tmp: Path) -> dict:
     return line
 
 
+# Phase 17, the measurement tools: yolov8n at 416 in bf16 over 600x800
+# frames (a 608x800 bucket) unless a tool's own rows name other shapes.
+# The batches and durations, shorter than the tools' defaults:
+MEASURE_DIR = ROOT / "build" / "measure"
+MEASURE_MODEL = ("yolov8n", 416)
+MEASURE_BUCKET, MEASURE_HW = (608, 800), (600, 800)
+MEASURE_LADDER = "2,8,32"        # step_ladder's batches (ZLT_LADDER)
+MEASURE_TRACE_BATCH, MEASURE_TRACE_STEPS = 8, 5
+MEASURE_CONV1X1_BATCH = 16
+MEASURE_LAYOUT_BATCH = 32        # layout_compare, perf_sweep, width_ladder
+MEASURE_LANES = (8, 64)          # lane_physics streams at 60 fps
+MEASURE_LANE_S = 5.0
+MEASURE_SPMD = ("--batch", "8", "--streams", "8", "--fps", "30",
+                "--duration", "3")
+MEASURE_WIRE = ("--start", "8", "--step", "8", "--max-streams", "16",
+                "--duration", "5")
+# trace_analyze's kernel times against profile_step's on the same step.
+TRACE_TOL = 0.15
+
+
+def _step_launches(c2f_form: str) -> dict:
+    """The kernel launches of one yolov8n step in its C2f form."""
+    if c2f_form == "split":
+        return {"conv1x1_bias_act": 50, "bias_silu": 47, "nms_keep": 1}
+    return dict(STEP_LAUNCHES)
+
+
+def measure_tools_phase(torch, smi_line: str) -> dict:
+    """Phase 17 (see the module docstring). Returns the launches of the
+    tools run in this process, and their lines."""
+    from zero_latency_yolo_tpu_torch import (
+        conv1x1_compare, floor_split_bench, lane_physics, layout_compare,
+        pack_proxy, perf_sweep, spmd_overhead, width_ladder, wire_ceiling)
+    from zero_latency_yolo_tpu_torch.runtime.engine import InferenceEngine
+    from zero_latency_yolo_tpu_torch.utils.bench_util import (
+        cached_step_runner, seeded_params, serving_config)
+    MEASURE_DIR.mkdir(parents=True, exist_ok=True)
+    variant, size = MEASURE_MODEL
+    bucket, hw = MEASURE_BUCKET, MEASURE_HW
+    out = {}
+
+    # step_ladder, a process: the card's ladder, which lane_physics and
+    # wire_ceiling replay below.
+    ladder_path = MEASURE_DIR / "step_ladder.json"
+    rc, lines, err = _tool("step_ladder", "--out", ladder_path,
+                           env={"ZLT_LADDER": MEASURE_LADDER})
+    require(rc == 0 and lines, f"step_ladder exited {rc}: {err[-2000:]}")
+    ladder = lines[-1]
+    print(f"step_ladder: {json.dumps(ladder)}", flush=True)
+    require(sorted(ladder["ladder"], key=int) == MEASURE_LADDER.split(",")
+            and all(v > 0 for v in ladder["ladder"].values()),
+            f"step_ladder rows: {ladder['ladder']}")
+    require(ladder["device"] == smi_line,
+            f"step_ladder's device {ladder['device']!r} is not {smi_line!r}")
+    require(json.loads(ladder_path.read_text()) == ladder,
+            "step_ladder --out differs from its line")
+
+    # trace_analyze, a process, against profile_step on the same step.
+    b = MEASURE_TRACE_BATCH
+    rc, lines, err = _tool("trace_analyze", "--batch", b, "--steps",
+                           MEASURE_TRACE_STEPS, "--trace-dir",
+                           MEASURE_DIR / "trace", "--variant", variant,
+                           "--size", size, "--bucket-h", bucket[0],
+                           "--bucket-w", bucket[1], "--height", hw[0],
+                           "--width", hw[1])
+    require(rc == 0 and lines, f"trace_analyze exited {rc}: {err[-2000:]}")
+    ta = lines[-1]
+    print(f"trace_analyze b{b}: {ta['ms_per_step']:.4f} ms/step of device "
+          f"time, idle share {ta['idle_share']:.4f}, categories " + ", ".join(
+              f"{c} {v['ms']:.4f} ms ({100 * v['share']:.1f}%)"
+              for c, v in ta["categories"].items()), flush=True)
+    require(ta["lane"] == "device", "trace_analyze found no device events")
+    cfg = serving_config(variant, size, [b], bucket)
+    engine = InferenceEngine(cfg, params=seeded_params(variant),
+                             device=DEVICE)
+    frames = np.random.default_rng(0).integers(0, 256, (b,) + bucket + (3,),
+                                               dtype=np.uint8)
+    _, own = profile_step(torch, cached_step_runner(engine, b, bucket, *hw,
+                                                    frames))
+    want = _step_launches(engine._c2f_form(b, size))
+    for name, n in want.items():
+        got = ta["port_kernels"].get(
+            name, {"ms": 0.0, "launches": 0, "launches_total": 0})
+        print(f"  {name}: trace_analyze {got['ms']:.5f} ms, "
+              f"{got['launches_total']} launches in "
+              f"{MEASURE_TRACE_STEPS} steps; profile_step "
+              f"{own[name]:.5f} ms", flush=True)
+        # The total, not the rounded count a step: a stray launch shows.
+        require(got["launches_total"] == n * MEASURE_TRACE_STEPS,
+                f"trace_analyze: {name} launched {got['launches_total']} "
+                f"times in {MEASURE_TRACE_STEPS} steps, not "
+                f"{n * MEASURE_TRACE_STEPS}")
+        require(abs(got["ms"] - own[name]) <= TRACE_TOL * own[name],
+                f"trace_analyze's {name} time {got['ms']:.5f} ms is not "
+                f"within {TRACE_TOL:.0%} of profile_step's {own[name]:.5f}")
+    del engine
+
+    reset_launch_counts()
+    # conv1x1_compare: per-call rows, then the A/B rows.
+    b = MEASURE_CONV1X1_BATCH
+    lines = _in_process(conv1x1_compare, ["--batches", b])
+    cc, calls = lines[-1], lines[:-1]
+    for c in calls:
+        print(f"  conv1x1 call b{c['batch']} M {c['m']} Cin {c['cin']} Cout "
+              f"{c['cout']} act {int(c['act'])} x{c['count']} ({c['route']}):"
+              f" kernel {1e3 * c['kernel_ms']:.2f} us, library "
+              f"{1e3 * c['library_ms']:.2f} us", flush=True)
+    for r in cc["rows"]:
+        print(f"  conv1x1_compare b{r['batch']} {r['tag']}: {r['step_ms']} ms"
+              f" ({r['fps']} fps), launches {r['launches']}", flush=True)
+    require([r["tag"] for r in cc["rows"]] == list(conv1x1_compare.COMBOS),
+            f"conv1x1_compare rows: {[r['tag'] for r in cc['rows']]}")
+    form = InferenceEngine(serving_config(variant, size, [b], bucket),
+                           params=seeded_params(variant),
+                           device=DEVICE)._c2f_form(b, size)
+    n1x1 = _step_launches(form)["conv1x1_bias_act"]
+    require(sum(c["count"] for c in calls) == n1x1
+            and len({(c["m"], c["cin"], c["cout"], c["act"])
+                     for c in calls}) == len(calls),
+            f"conv1x1_compare per-call rows cover "
+            f"{sum(c['count'] for c in calls)} of {n1x1} calls")
+    for r in cc["rows"]:
+        n = r["launches"]["conv1x1_bias_act"]
+        require(n == (0 if r["conv1x1"] == "library" else n1x1),
+                f"conv1x1_compare {r['tag']}: {n} 1x1 kernel launches")
+        require(r["launches"]["nms_keep"] == 1
+                and r["launches"]["bias_silu"] > 0,
+                f"conv1x1_compare {r['tag']} launches {r['launches']}")
+    cfg32 = serving_config(variant, size, [b], bucket, dtype="float32")
+    eng32 = InferenceEngine(cfg32, params=seeded_params(variant),
+                            device=DEVICE)
+    game = np.zeros((b,) + bucket + (3,), np.uint8)
+    game[:, :hw[0], :hw[1]] = [synthetic_frame(hw[1], hw[0], seed=s)
+                               for s in range(b)]
+    got = {r: cached_step_runner(eng32, b, bucket, *hw, game,
+                                 conv1x1=r)().cpu().numpy()
+           for r in ("kernel", "library")}
+    require(got["kernel"][:, 0].sum() > 0, "conv1x1 f32 gate vacuous")
+    kernels_vs_plain(got["library"], got["kernel"], "conv1x1 library route "
+                     f"f32 b{b}", against="kernel route")
+    out["conv1x1_compare"] = cc
+    del eng32
+
+    # layout_compare, with the four combos' f32 outputs against each other.
+    b = MEASURE_LAYOUT_BATCH
+    lines = _in_process(layout_compare, ["--batches", b])
+    require(len(lines[-1]["rows"]) == 5,
+            f"layout_compare rows: {lines[-1]['rows']}")
+    for r in lines[-1]["rows"]:
+        print(f"  layout_compare b{r['batch']} {r['tag']}: {r['step_ms']} ms "
+              f"({r['fps']} fps)", flush=True)
+    engs = layout_compare.engines(variant, size, [b], bucket, 256,
+                                  "float32", DEVICE)
+    game = np.zeros((b,) + bucket + (3,), np.uint8)
+    game[:, :hw[0], :hw[1]] = [synthetic_frame(hw[1], hw[0], seed=s)
+                               for s in range(b)]
+    outs = {k: cached_step_runner(e, b, bucket, *hw, game)().cpu().numpy()
+            for k, e in engs.items()}
+    base = outs[("concat", "slice")]
+    require(base[:, 0].sum() > 0, "layout f32 gate vacuous")
+    for k, o in outs.items():
+        kernels_vs_plain(o, base, f"layout {'+'.join(k)} f32 b{b}",
+                         against="concat+slice")
+    out["layout_compare"] = lines[-1]
+    del engs
+
+    sweep_shape = ["--variant", variant, "--size", size, "--bucket-h",
+                   bucket[0], "--bucket-w", bucket[1], "--height", hw[0],
+                   "--width", hw[1]]
+    for tool, argv, n in ((perf_sweep, ["--batch", b, *sweep_shape], None),
+                          (width_ladder, ["--batches", b], 4),
+                          (floor_split_bench, [], 6), (pack_proxy, [], 4)):
+        name = tool.__name__.rsplit(".", 1)[-1]
+        lines = _in_process(tool, argv)
+        rows = lines[-1].get("rows") or lines[-1].get("pairs") or [
+            dict(row=k, **v) for k, v in lines[-1]["results"].items()]
+        require(n is None or len(rows) == n, f"{name}: {len(rows)} rows")
+        for r in rows:
+            print(f"  {name}: {json.dumps(r)}", flush=True)
+        out[name] = lines[-1]
+
+    # spmd_overhead on a virtual 2x1 over the card, equal-total, one rep.
+    lines = _in_process(spmd_overhead, [
+        "--variant", variant, "--size", size, "--dtype", "bfloat16",
+        "--topk", "256", "--mode", "equal-total", "--reps", "1",
+        *MEASURE_SPMD])
+    sp = lines[-1]
+    print(f"spmd_overhead: {json.dumps(sp)}", flush=True)
+    require(sp["virtual"] == (torch.cuda.device_count() < 2)
+            and sp["results_equal"]["equal"]
+            and sp["results_equal"]["detections"] > 0,
+            f"spmd_overhead: arms differ or vacuous: {sp['results_equal']}")
+    out["spmd_overhead"] = sp
+    launches = launch_counts()
+
+    # lane_physics over the card's ladder: every request accounted for.
+    for streams in MEASURE_LANES:
+        rows = _in_process(lane_physics, [
+            ladder_path, "--battery", "single", "--streams", streams,
+            "--duration", MEASURE_LANE_S], device=False)
+        require(len(rows) == 1, f"lane_physics rows: {rows}")
+        r = rows[0]
+        print(f"lane_physics {streams}x60 over {ladder_path.name}: "
+              f"{json.dumps(r)}", flush=True)
+        require(r["unaccounted"] == 0 and r["results"] > 0
+                and r["device"] == smi_line,
+                f"lane_physics {streams}x60: {r}")
+        out[f"lane_physics_{streams}"] = r
+
+    # wire_ceiling over the card's ladder: every offered frame accounted.
+    lines = _in_process(wire_ceiling, ["--ladder", ladder_path,
+                                           *MEASURE_WIRE])
+    wc = lines[-1]
+    for r in wc["rows"]:
+        print(f"wire_ceiling {r['streams']}x60 on {smi_line}: sent "
+              f"{r['frames_sent']}, results {r['results_received']}, dropped "
+              f"{r['frames_dropped']}, short {r['short']} (allowed 0.."
+              f"{r['streams']} + socket drops {r['socket_drops']}); served "
+              f"{r['served_fps']} of {r['offered_fps']} fps, detect p99 "
+              f"{r['detect_p99_ms']} ms, host overhead p99 "
+              f"{r['host_overhead_p99_ms']} ms", flush=True)
+        require(0 <= r["short"] <= r["streams"] + r["socket_drops"],
+                f"wire_ceiling {r['streams']}x60: {r['short']} frames "
+                "neither served nor counted")
+    require([r["streams"] for r in wc["rows"]] == [8, 16],
+            f"wire_ceiling rungs {[r['streams'] for r in wc['rows']]}")
+    print(f"wire_ceiling knee (p99 < {wc['slo_ms']} ms, >= 98% served): "
+          f"{wc['knee_streams_under_slo']} streams", flush=True)
+    out["wire_ceiling"] = wc
+    out["launches"] = launches
+    return out
+
+
 def main() -> None:
     with Phase("device"):
         import torch
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device")
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60)
-        smi_line = smi.stdout.strip().splitlines()[0]
+        sys.path.insert(0, str(ROOT))
+        from zero_latency_yolo_tpu_torch.utils.bench_util import device_label
+        smi_line = device_label(DEVICE)
         print(smi_line, flush=True)
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"python {sys.version.split()[0]} "
               f"device {torch.cuda.get_device_name(0)}", flush=True)
-        sys.path.insert(0, str(ROOT))
         from zero_latency_yolo_tpu_torch.ops import (_build, act_cuda,
                                                      conv1x1_cuda, nms_cuda)
         from zero_latency_yolo_tpu_torch.runtime import frames as frames_mod
@@ -4680,6 +4958,9 @@ def main() -> None:
     with Phase("train mesh and training tools"):
         train_mesh = train_mesh_phase(torch, smi_line)
 
+    with Phase("measurement tools"):
+        measure = measure_tools_phase(torch, smi_line)
+
     # The int8 conv's own path is the int8 path; every other kernel's is
     # the main path of phase 4.
     launches["conv_int8"] = int8["launches"]["conv_int8"]
@@ -4700,7 +4981,8 @@ def main() -> None:
                    "mesh": mesh["launches"][n],
                    "detect": tools["detect"][n],
                    "loadtest_server": tools["loadtest_server"][n],
-                   "train_tools_eval": train_mesh["launches"][n]}
+                   "train_tools_eval": train_mesh["launches"][n],
+                   "tools": measure["launches"][n]}
                for n in KERNELS}
     s640 = ladder["report"]
     print("kernels: " + ", ".join(

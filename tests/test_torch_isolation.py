@@ -68,6 +68,17 @@ def test_isolation_covers_the_training_tools():
         "train/checkpoint", "train/loop")} <= names
 
 
+def test_isolation_covers_the_measurement_tools():
+    """The measurement tools and the launch table they share with
+    chip_smoke.py are among the files the import checks above walk."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {f"zero_latency_yolo_tpu_torch/{m}.py" for m in (
+        "step_ladder", "trace_analyze", "conv1x1_compare", "layout_compare",
+        "perf_sweep", "width_ladder", "floor_split_bench", "pack_proxy",
+        "lane_physics", "spmd_overhead", "wire_ceiling", "ops/launches",
+        "utils/bench_util", "utils/profiling")} <= names
+
+
 def test_package_imports_with_jax_blocked():
     """Every module of the port imports in a process where `import jax` and
     `import zero_latency_yolo_tpu` fail."""

@@ -67,6 +67,7 @@ def step_profile(torch, fn, iters: int = 5, nms_stages: int = 1) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from zero_latency_yolo_tpu_torch.ops import nms as nms_ops
+    from zero_latency_yolo_tpu_torch.utils.profiling import kernel_rows
 
     def ranged(name, f):
         def run(*args, **kwargs):
@@ -90,10 +91,10 @@ def step_profile(torch, fn, iters: int = 5, nms_stages: int = 1) -> dict:
     finally:
         nms_ops._nms_and_compact, nms_ops._compact_one = saved
     # The ranges also show on the device's timeline; they are not kernels.
-    rows = sorted(((e.self_device_time_total / 1e3 / iters, e.count // iters,
-                    e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.key not in (STAGE, COMPACT)), reverse=True)
+    rows = kernel_rows(((e.key, e.self_device_time_total, e.count)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and e.key not in (STAGE, COMPACT)), iters)
 
     # Each kernel on the device timeline carries the correlation id of the
     # runtime call that launched it (cudaLaunchKernel and kin), which sits

@@ -437,9 +437,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("bench_server: no CUDA device")
     from zero_latency_yolo_tpu_torch.runtime.server import DetectionServer
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
+    from zero_latency_yolo_tpu_torch.utils.bench_util import device_label
+    smi_line = device_label("cuda")
     warm_profiler(torch)
     cfg = deployed_config(native_transport=args.native_transport,
                           config=Path(args.config))
@@ -451,7 +450,7 @@ def main() -> None:
     finally:
         srv.stop()
     print(json.dumps({"label": args.label,
-                      "device": smi.stdout.strip().splitlines()[0],
+                      "device": smi_line,
                       "native_transport": args.native_transport,
                       "cache": args.cache,
                       "config": Path(args.config).name,

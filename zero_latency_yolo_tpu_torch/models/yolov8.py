@@ -253,9 +253,17 @@ def fold_batchnorm(params: Params, eps: float = BN_EPS) -> Params:
 # {"w_q": (Cout, Kp) int8, "k", "w_scale", "b"[, "x_scale"]}.
 # ---------------------------------------------------------------------------
 
+CONV1X1_ROUTES = ("kernel", "library")
+
+
 def _conv(p: Params, x: torch.Tensor, stride: int = 1, act: bool = True,
-          plain: bool = False) -> torch.Tensor:
+          plain: bool = False, conv1x1: str = "kernel") -> torch.Tensor:
     """Conv + bias (+ SiLU) over NHWC `x`; SAME padding ((k-1)//2).
+
+    conv1x1="library" runs a folded k=1 s=1 conv as `torch.addmm` of the
+    bias and the flattened activation with the weight, then `F.silu`, in
+    x's dtype: the library's computation of the 1x1 kernel's function,
+    the other route of `conv1x1_compare`'s A/B (no serving path takes it).
 
     An int8 block: per-tensor activation scale (the calibrated `x_scale`,
     else max(|x|) / 127 computed on the device), int8 conv with int32
@@ -270,8 +278,16 @@ def _conv(p: Params, x: torch.Tensor, stride: int = 1, act: bool = True,
         if stride != 1:
             raise ValueError("1x1 conv blocks run at stride 1 only")
         b, h, w, cin = x.shape
-        fn = conv1x1_bias_act_plain if plain else conv1x1_bias_act
-        y = fn(x.reshape(b * h * w, cin), p["w_mm"], p["b"], act=act)
+        x2 = x.reshape(b * h * w, cin)
+        if conv1x1 == "library":
+            y = torch.addmm(p["b"].to(x.dtype), x2, p["w_mm"])
+            y = F.silu(y) if act else y
+        elif conv1x1 == "kernel":
+            fn = conv1x1_bias_act_plain if plain else conv1x1_bias_act
+            y = fn(x2, p["w_mm"], p["b"], act=act)
+        else:
+            raise ValueError(f"conv1x1 route {conv1x1!r}: one of "
+                             f"{CONV1X1_ROUTES}")
         return y.view(b, h, w, -1)
     wt = p["w"]
     pad = (wt.shape[-1] - 1) // 2
@@ -293,15 +309,15 @@ def _on_shards(p: Params, x: torch.Tensor, fn) -> torch.Tensor:
 
 
 def tp_conv(p: Params, x: torch.Tensor, stride: int = 1, act: bool = True,
-            plain: bool = False) -> torch.Tensor:
+            plain: bool = False, conv1x1: str = "kernel") -> torch.Tensor:
     """`_conv` under tensor parallelism, the `conv_fn` a serving mesh with
     model > 1 runs: a channel-sharded block runs each output-channel slice
     through `_conv` on its own device and gathers the slices along
     channels; a whole block runs `_conv` as it is."""
     if "shards" in p:
-        return _on_shards(p, x, lambda q, t: _conv(q, t, stride=stride,
-                                                   act=act, plain=plain))
-    return _conv(p, x, stride=stride, act=act, plain=plain)
+        return _on_shards(p, x, lambda q, t: _conv(
+            q, t, stride=stride, act=act, plain=plain, conv1x1=conv1x1))
+    return _conv(p, x, stride=stride, act=act, plain=plain, conv1x1=conv1x1)
 
 
 def _bottleneck(p: Params, x: torch.Tensor, shortcut: bool, cv) -> torch.Tensor:

@@ -8,9 +8,27 @@ what its load launched."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 from . import act_cuda, conv1x1_cuda, conv_int8_cuda, nms_cuda
+
+# The device functions of each kernel, as the profiler names them: a kernel
+# event whose name holds one of these is that kernel's (`chip_smoke.py`'s
+# in-step times, `trace_analyze`'s rollup).
+KERNEL_SYMBOLS: Dict[str, Tuple[str, ...]] = {
+    "nms_keep": ("nms_keep_kernel",),
+    "conv1x1_bias_act": ("conv1x1_wgmma_kernel", "mm_bias_act_kernel"),
+    "bias_silu": ("bias_silu_vec_kernel", "bias_silu_kernel"),
+    "conv_int8": ("conv_int8_kernel",),
+}
+
+
+def kernel_of(event_name: str) -> Optional[str]:
+    """The port kernel a profiler event belongs to, or None."""
+    for name, symbols in KERNEL_SYMBOLS.items():
+        if any(sym in event_name for sym in symbols):
+            return name
+    return None
 
 
 def launch_counts() -> Dict[str, int]:

@@ -67,6 +67,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import random
 import threading
@@ -305,7 +306,13 @@ class InferenceEngine:
 
     def __init__(self, config: ServerConfig,
                  params: Optional[Dict[str, Any]] = None,
-                 device: str = "cuda") -> None:
+                 device: str = "cuda",
+                 mesh_devices: Optional[Sequence[torch.device]] = None
+                 ) -> None:
+        """mesh_devices: the devices a serving mesh (tpu.mesh_data x
+        tpu.mesh_model > 1) is built from, in place of
+        `parallel/mesh.py` `available_devices(device)`; a list that repeats
+        a device builds a virtual mesh (`spmd_overhead` on one card)."""
         self.config = config
         tpu = config.tpu
         self.device = torch.device(device)
@@ -414,7 +421,8 @@ class InferenceEngine:
         md, mm = int(tpu.mesh_data), int(tpu.mesh_model)
         self.mesh_requested = (md, mm)
         if md * mm > 1 and not self.simulation:
-            devices = mesh_mod.available_devices(self.device)
+            devices = (list(mesh_devices) if mesh_devices is not None
+                       else mesh_mod.available_devices(self.device))
             if len(devices) >= md * mm:
                 self.mesh = mesh_mod.make_mesh(md, mm, devices[:md * mm])
                 self.device = self.mesh.leads[0]
@@ -554,7 +562,7 @@ class InferenceEngine:
 
     # ---------------------------------------------------------------- step
     def _build_step(self, batch: int, size: Optional[int] = None,
-                    plain: bool = False):
+                    plain: bool = False, conv1x1: str = "kernel"):
         """The serving step of one (batch bucket, serve size):
         step(params, frames, heights, widths, class_w, conf, iou) -> packed
         (B, 1 + 6*MAX_DET) f32, the JAX engine's `_build_step`: resize by
@@ -562,7 +570,10 @@ class InferenceEngine:
         the model with the C2f form `resolve_c2f` picks for the batch, the
         decode, and the concat or per-level candidate selection (tpu.select).
         `plain=True` runs every kernel's plain PyTorch version instead (the
-        reference a run checks the kernels against). An f32 step runs its
+        reference a run checks the kernels against). `conv1x1="library"`
+        runs every k=1 s=1 conv as `torch.addmm` + `F.silu` instead of the
+        1x1 kernel (`models/yolov8.py` `_conv`; the A/B of
+        `conv1x1_compare`, no serving path). An f32 step runs its
         convs and matmuls in full f32 whatever the caller's TF32 settings
         (`full_f32_precision`). On a serving mesh the step of the batch
         bucket runs on each data row's B / data rows and params, with
@@ -572,9 +583,13 @@ class InferenceEngine:
         tpu = self.config.tpu
         mode, stem, select = tpu.preprocess, tpu.stem, tpu.select
         tensor_parallel = self.mesh is not None and self.mesh.model > 1
+        conv_fn = tp_conv if tensor_parallel else None
+        if conv1x1 != "kernel":
+            # tp_conv runs a whole (unsharded) block through _conv as it is.
+            conv_fn = functools.partial(tp_conv, conv1x1=conv1x1)
         model_kw = dict(dtype=dtype, plain=plain, stem=stem,
                         c2f=self._c2f_form(batch, size), dot1x1=tpu.dot1x1,
-                        conv_fn=tp_conv if tensor_parallel else None)
+                        conv_fn=conv_fn)
         if stem == "s2d":
             if not mode.startswith("letterbox"):
                 raise ValueError("stem='s2d' requires a letterbox preprocess")
@@ -633,28 +648,30 @@ class InferenceEngine:
         return step
 
     def get_step(self, batch: int, bucket: Tuple[int, int],
-                 size: Optional[int] = None):
+                 size: Optional[int] = None, conv1x1: str = "kernel"):
         """The step of a (batch, bucket) pair at serve size `size` (default:
         the current rung). PyTorch compiles nothing per shape, so the steps
-        are cached by (batch, size) only."""
+        are cached by (batch, 1x1 route, size) only. `conv1x1`: see
+        `_build_step`."""
         size = int(size or self._serve_size)
-        key = (batch, size)
+        key = (batch, conv1x1, size)
         fn = self._step_cache.get(key)
         if fn is None:
-            fn = self._step_cache[key] = self._build_step(batch, size)
+            fn = self._step_cache[key] = self._build_step(batch, size,
+                                                          conv1x1=conv1x1)
         return fn
 
     def get_step_cached(self, batch: int, bucket: Tuple[int, int],
-                        size: Optional[int] = None):
+                        size: Optional[int] = None, conv1x1: str = "kernel"):
         """The cached step: step(params, cache, shw, class_w, conf, iou),
         shw a (3, B) int32 device tensor of rows [slots, heights, widths]:
         the gather of the batch's slots out of the device frame cache
         followed by the step (the JAX engine's fused program)."""
         size = int(size or self._serve_size)
-        key = ("cached", batch, size)
+        key = ("cached", batch, conv1x1, size)
         fn = self._step_cache.get(key)
         if fn is None:
-            step = self.get_step(batch, bucket, size)
+            step = self.get_step(batch, bucket, size, conv1x1=conv1x1)
 
             def fn(params, cache, shw, class_w, conf, iou):
                 return step(params, _gather(cache, shw[0]), shw[1], shw[2],

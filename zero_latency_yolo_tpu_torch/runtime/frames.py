@@ -43,13 +43,20 @@ def _jpeg_sof_dims(data: bytes) -> Tuple[int, int]:
     post-decode shape check can run — on a wire-reachable path. The SOF
     scan is a few hundred bytes of marker walking; callers compare the
     claimed dims against the expected extent and reject before libjpeg
-    allocates anything."""
+    allocates anything.
+
+    A marker may be preceded by any number of 0xFF fill bytes (ITU T.81
+    B.1.1.2); the scan skips them, so a fill byte is never read as the
+    marker (the JAX package's copy reads it as one and refuses the JPEG)."""
     i = 2  # past SOI
     n = len(data)
     while i + 4 <= n:
         if data[i] != 0xFF:
             break  # corrupt marker stream — let the real decoder reject it
         marker = data[i + 1]
+        if marker == 0xFF:
+            i += 1  # a fill byte: the marker is further on
+            continue
         if marker in (0x01,) or 0xD0 <= marker <= 0xD9:
             i += 2  # standalone markers carry no length
             continue

@@ -10,6 +10,7 @@ corruption) for reliability tests.
 
 from __future__ import annotations
 
+import json
 import random
 import socket
 import threading
@@ -107,6 +108,12 @@ class SimClient:
         # notice — the session is already gone server-side.
         self.server_disconnected = False
         self._reconnect_pending = False
+        # The accuracy floor (min_serve_size) this client last asked for in
+        # a SET_CONFIG: per-session state that a new session starts without,
+        # so reconnect() asks for it again, alone. The thresholds and the
+        # SLO are the server's global state, shared by every client, and
+        # are not replayed.
+        self.sent_floor: Optional[int] = None
         self._handshake_event = threading.Event()
         self._sent_at: Dict[int, float] = {}
         self._frame_id = 0
@@ -290,9 +297,16 @@ class SimClient:
                 self._send(ClientInfoPacket(info=info).serialize())
             except OSError:
                 return False
-            return self._handshake_event.wait(timeout)
+            if not self._handshake_event.wait(timeout):
+                return False
         finally:
             self._reconnect_pending = False
+        if self.sent_floor is not None:
+            # The new session's floor is the config's until the client asks
+            # again; in a command of its own, so that a global key the new
+            # server refuses cannot take the floor down with it.
+            self.set_config(min_serve_size=self.sent_floor)
+        return True
 
     def reset_latency_stats(self) -> None:
         """Drop accumulated e2e latency samples and in-flight send stamps —
@@ -306,7 +320,22 @@ class SimClient:
         """Send a DISCONNECT command so the server frees the session."""
         self.send_command(CommandType.DISCONNECT)
 
+    def set_config(self, **settings) -> None:
+        """SET_CONFIG with these runtime settings (confidence_threshold,
+        nms_threshold, adaptive_slo_ms, min_serve_size); a min_serve_size
+        is recorded so that a re-handshake asks for it again."""
+        self.send_command(CommandType.SET_CONFIG,
+                          json.dumps(settings).encode())
+
     def send_command(self, command_type: int, data: bytes = b"") -> None:
+        if command_type == CommandType.SET_CONFIG:
+            try:
+                settings = json.loads(data.decode())
+            except (UnicodeDecodeError, ValueError):
+                settings = None
+            if (isinstance(settings, dict)
+                    and settings.get("min_serve_size") is not None):
+                self.sent_floor = settings["min_serve_size"]
         try:
             self._send(CommandPacket(command_type=command_type,
                                      command_data=data).serialize())

@@ -31,7 +31,7 @@ import itertools
 import os
 import threading
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Iterable, List, Tuple
 
 import torch
 
@@ -144,6 +144,23 @@ def capture_status() -> Dict:
     if not running:
         _capture_lock.release()
     return {"capturing": running, "last": dict(_last_capture) or None}
+
+
+def kernel_rows(events: Iterable[Tuple[str, float, int]], steps: int
+                ) -> List[Tuple[float, int, str]]:
+    """Device events summed by name, per step: `events` yields (name,
+    microseconds, launches) — one event of a Chrome trace (launches 1), or
+    one row of torch.profiler's `key_averages()` (its total and count).
+    Returns one (ms a step, launches a step, name) per name, the largest
+    time first. `bench_host.step_profile` and `trace_analyze` both sum
+    through this."""
+    total: Dict[str, List[float]] = {}
+    for name, us, n in events:
+        acc = total.setdefault(name, [0.0, 0])
+        acc[0] += us
+        acc[1] += n
+    return sorted(((us / 1e3 / steps, int(n) // steps, name)
+                   for name, (us, n) in total.items()), reverse=True)
 
 
 def annotate(name: str):
