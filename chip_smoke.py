@@ -13,21 +13,28 @@ and the script exits non-zero:
    register spills.
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    on the inputs the serving step gives it (recorded from one plain step of
-   the deployed config at batch 8: 24 1x1 convs, 39 bias+SiLU epilogues,
-   one NMS keep mask), in bf16 and f32, plus the NMS kernel on seeded boxes
-   (B 8, K 256, 70% valid), exact. The 1x1 GEMM runs each call on both
+   the deployed config at batch 8: 24 1x1 convs, 38 k=3 convs on the fused
+   k=3 kernel, the stem's bias+SiLU, one NMS keep mask), in bf16 and f32
+   (the k=3 kernel in bf16: within CONV3X3_ULP ulp or CONV3X3_ATOL), plus
+   the NMS kernel on seeded boxes (B 8, K 256, 70% valid), exact; the
+   bias+SiLU kernel also on the F.conv2d outputs at the 38 k=3 calls (the
+   inputs of the route the k=3 kernel replaced). The 1x1 GEMM runs each call on both
    routes: every bf16 call must plan onto the tensor-core kernel, and the
    CUDA-core kernel is checked in bf16 and f32. Times (CUDA events, after
    warm-up) for the kernel, its plain version and the one PyTorch call
    that computes the same function, beside the least time the card could
    take for the same bytes and operations, in all and call by call (the
    1x1 GEMM on both routes; bias+SiLU and NMS beside the device time of a
-   launch that moves one vector); the host cost of a TMA map encode.
+   launch that moves one vector; the k=3 kernel beside F.conv2d with the
+   bias + F.silu and beside F.conv2d + the bias+SiLU kernel, and every
+   built tile of it at each distinct call); the host cost of a TMA map
+   encode.
 4. main path: the deployed config (configs/examples/server-cs16-416.json:
    yolov8n, 416, bf16, real weights) through InferenceEngine.infer_batch and
    dispatch/complete_many, with every kernel's launch count reset just
    before and read just after; every 1x1 conv of the bf16 path must have
-   run on the tensor cores. Then the f32 step with kernels against the
+   run on the tensor cores, and every k=3 call the plan sends to the k=3
+   kernel on it (38 a step, one bias+SiLU a step left). Then the f32 step with kernels against the
    f32 step with plain versions, and against the JAX package's f32 step
    (the committed fixture tests/torch_fixtures/jax_f32_step_416.npz, read
    with NumPy; fixture_gate), both with counts and classes equal and boxes
@@ -100,8 +107,8 @@ and the script exits non-zero:
    classes equal, boxes and scores within 1e-3); its packed output against
    the default step's is printed, not gated (another computation). Then
    tpu.c2f "auto" at batch 32 in bf16, which resolves to the split form:
-   50 1x1 GEMM, 47 bias+SiLU and 1 NMS launches a step, on the tensor
-   cores, and the bf16 detection gate against the f32 default step.
+   50 1x1 GEMM, 38 k=3, 9 bias+SiLU and 1 NMS launches a step, on the
+   tensor cores, and the bf16 detection gate against the f32 default step.
 9. adaptive policy: configs/examples/server-64stream-adaptive.json (yolov8n,
    416 with a 320 rung). warmup certifies both rungs; dispatch/complete
    with the SLO at 0.001 ms must step down to 320, where a batch equals, to
@@ -139,7 +146,8 @@ and the script exits non-zero:
    re-calibrated) with every count reset just before and read just after,
    all four kernels > 0; a step's launches at batch 8 and at batch 32
    (c2f auto resolves to split; int8 blocks run the slice form): 44 int8
-   convs, 6 1x1 (tensor cores), 13 bias+SiLU, 1 NMS. Device busy, device
+   convs, 6 1x1 (tensor cores), 12 k=3 (the unquantized head's), 1
+   bias+SiLU, 1 NMS. Device busy, device
    and wall time of the int8 and the bf16 step at batch 1, 8 and 16. The
    int8 server: a load of phase 6's clients on the cached default server
    with its gates, the exactness of its results without and with the
@@ -265,8 +273,9 @@ and the script exits non-zero:
    under build/measure/ with the card's name and power limit; trace_analyze
    as a process (batch 8, 5 steps): its device time of each port kernel
    within TRACE_TOL of profile_step's on the same step, and its launches
-   over the 5 steps 5 times the step's (24 : 39 : 1 in the slice form,
-   50 : 47 : 1 split; a total, so a stray launch shows). In
+   over the 5 steps 5 times the step's (1x1 : k=3 : bias+SiLU : NMS
+   24 : 38 : 1 : 1 in the slice form, 50 : 38 : 9 : 1 split; a total, so a
+   stray launch shows). In
    this process, every count reset just before: conv1x1_compare at batch
    16 (per-call rows covering every 1x1 call of the step; the library
    route launches no 1x1 kernel, the kernel route the step's count; in f32
@@ -296,6 +305,7 @@ and the script exits non-zero:
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import subprocess
 import sys
@@ -340,6 +350,11 @@ TOLERANCE = {
     ("bias_silu", "float32"): (1e-6, 1e-6),
     ("bias_silu", "bfloat16"): (1e-5, 2.0 ** -7),
 }
+# The k=3 kernel against its plain version (bf16 only): the same f32 sums in
+# another order and SiLU with the hardware's exp2 and reciprocal, then one
+# rounding each: at most CONV3X3_ULP bf16 ulps apart, or within CONV3X3_ATOL
+# where a cancelling sum leaves a value near 0, whose ulps are tiny.
+CONV3X3_ULP, CONV3X3_ATOL = 1, 2.0 ** -12
 
 KERNELS = {
     # name: (route, source, the TPU kernel it replaces)
@@ -349,14 +364,25 @@ KERNELS = {
                          "zero_latency_yolo_tpu/ops/conv1x1_pallas.py:57"),
     "bias_silu": ("cuda", "zero_latency_yolo_tpu_torch/csrc/kernels.cu",
                   "zero_latency_yolo_tpu/ops/act_pallas.py:40"),
+    # The same TPU kernel's redesign for the card: the bias + SiLU pass as
+    # the epilogue of a k=3 implicit-GEMM conv (bf16 only; bias_silu keeps
+    # the calls it does not take).
+    "conv3x3_bias_act": ("cuda", "zero_latency_yolo_tpu_torch/csrc/conv3x3_sm90.cu",
+                         "zero_latency_yolo_tpu/ops/act_pallas.py:40"),
     # A port-side kernel: the JAX package's int8 conv is an XLA op (the
     # "w_q" branch of _conv), no Pallas kernel.
     "conv_int8": ("cuda", "zero_latency_yolo_tpu_torch/csrc/conv_int8_sm90.cu",
                   "zero_latency_yolo_tpu/models/yolov8.py:287"),
 }
 # The kernels every path without int8 launches (the int8 conv runs only
-# with tpu.quantize_int8).
+# with tpu.quantize_int8), and those of every bf16 path (the k=3 kernel
+# takes bf16 calls only: an f32 step runs its k=3 convs as F.conv2d and
+# bias+SiLU).
 PATH3 = ("nms_keep", "conv1x1_bias_act", "bias_silu")
+PATH4 = PATH3 + ("conv3x3_bias_act",)
+# The bf16 step of yolov8n (24 1x1, 38 k=3 convs on the k=3 kernel, the
+# stem's bias+SiLU, one NMS).
+K3_CALLS = 38
 # The device functions of each kernel, as the profiler names them, are
 # `zero_latency_yolo_tpu_torch/ops/launches.py` KERNEL_SYMBOLS (shared with
 # trace_analyze).
@@ -546,11 +572,21 @@ def record_path_calls(engine, frames_d, hs, ws, size=None):
     """Run one plain bf16 step (at serve size `size`, default the model
     size) and record the inputs it hands each kernel's plain version: the
     serving path's own shapes and values."""
+    return recording_calls(lambda: engine._build_step(
+        int(frames_d.shape[0]), size, plain=True)(
+            engine._params, frames_d, hs, ws, engine._class_weights,
+            engine.config.confidence_threshold, engine.config.nms_threshold))
+
+
+def recording_calls(fn):
+    """Run fn (a plain step) with each kernel's plain version recording
+    the inputs it is handed."""
     from zero_latency_yolo_tpu_torch.models import yolov8 as ym
     from zero_latency_yolo_tpu_torch.ops import nms as nms_mod
-    calls = {"conv1x1_bias_act": [], "bias_silu": [], "nms_keep": []}
-    saved = (ym.conv1x1_bias_act_plain, ym.bias_silu_plain,
-             nms_mod.nms_keep_plain)
+    mods = {"conv1x1_bias_act": ym, "bias_silu": ym, "conv3x3_bias_act": ym,
+            "nms_keep": nms_mod}
+    calls = {name: [] for name in mods}
+    saved = {name: getattr(mod, name + "_plain") for name, mod in mods.items()}
 
     def recorder(name, fn):
         def rec(*args, **kwargs):
@@ -558,22 +594,21 @@ def record_path_calls(engine, frames_d, hs, ws, size=None):
             return fn(*args, **kwargs)
         return rec
 
-    ym.conv1x1_bias_act_plain = recorder("conv1x1_bias_act", saved[0])
-    ym.bias_silu_plain = recorder("bias_silu", saved[1])
-    nms_mod.nms_keep_plain = recorder("nms_keep", saved[2])
+    for name, mod in mods.items():
+        setattr(mod, name + "_plain", recorder(name, saved[name]))
     try:
-        engine._build_step(int(frames_d.shape[0]), size, plain=True)(
-            engine._params, frames_d, hs, ws, engine._class_weights,
-            engine.config.confidence_threshold, engine.config.nms_threshold)
+        fn()
     finally:
-        (ym.conv1x1_bias_act_plain, ym.bias_silu_plain,
-         nms_mod.nms_keep_plain) = saved
+        for name, mod in mods.items():
+            setattr(mod, name + "_plain", saved[name])
     return calls
 
 
-def check_kernels(torch, calls, thr: float, dev):
+def check_kernels(torch, calls, thr: float, dev, sweep: bool = False):
     """Phase 3: every recorded call through the kernel and its plain version
-    in bf16 and f32; bf16 times. Returns per-kernel report fields."""
+    in bf16 and f32 (the k=3 kernel in bf16); bf16 times; with `sweep`, the
+    k=3 kernel's every built tile at each distinct call. Returns
+    per-kernel report fields."""
     import torch.nn.functional as F
     from zero_latency_yolo_tpu_torch.ops import (_build, act_cuda, conv1x1_cuda,
                                                  nms_cuda)
@@ -646,8 +681,15 @@ def check_kernels(torch, calls, thr: float, dev):
         bound_by="bytes" if bytes_s >= ops_s else "operations",
         routes=routes, encode_us=enc_us)
 
+    # The k=3 conv with its bias + SiLU fused (bf16 calls only).
+    if calls["conv3x3_bias_act"]:
+        report["conv3x3_bias_act"] = check_conv3x3(
+            torch, calls["conv3x3_bias_act"], sweep)
+
     # Bias + SiLU, with the device time of a launch that does no work to
-    # speak of (one 16-byte vector): the per-launch floor.
+    # speak of (one 16-byte vector): the per-launch floor. Its inputs: the
+    # path's own calls, and the outputs of F.conv2d at each k=3 call that
+    # the k=3 kernel took (what the route it replaced handed this kernel).
     errs = {"bfloat16": 0.0, "float32": 0.0}
     ms = plain_ms = lib_ms = bound_ms = bytes_s = ops_s = 0.0
     tiny = torch.ones(1, 1, 1, 8, dtype=torch.bfloat16, device=dev)
@@ -656,7 +698,14 @@ def check_kernels(torch, calls, thr: float, dev):
     print(f"bias_silu path calls (bf16; us per call): shape | kernel "
           f"F.silu(y+b) bound kernel-floor; launch floor (one vector) "
           f"{1e3 * floor_ms:.2f} us", flush=True)
-    for (y, b), _ in calls["bias_silu"]:
+
+    def conv_outputs():
+        for (x, w, b, stride), _ in calls["conv3x3_bias_act"]:
+            yield (F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride,
+                            padding=1).permute(0, 2, 3, 1).contiguous(),
+                   b), {}
+    n_bias_silu = len(calls["bias_silu"]) + len(calls["conv3x3_bias_act"])
+    for (y, b), _ in itertools.chain(calls["bias_silu"], conv_outputs()):
         for dt, cast in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             yy = y.to(cast).contiguous()
             err, ok = compare(torch, act_cuda.bias_silu(yy, b),
@@ -679,7 +728,8 @@ def check_kernels(torch, calls, thr: float, dev):
               f"{1e3 * t_lib:7.2f} {1e6 * max(t_bytes, t_ops):7.2f} "
               f"{1e3 * (t_k - floor_ms):7.2f}", flush=True)
     report["bias_silu"] = dict(
-        calls=len(calls["bias_silu"]), max_abs_err=errs["bfloat16"],
+        calls=n_bias_silu, path_calls=len(calls["bias_silu"]),
+        max_abs_err=errs["bfloat16"],
         max_abs_err_f32=errs["float32"], ms=ms, plain_ms=plain_ms,
         library_ms=lib_ms, bound_ms=bound_ms, floor_ms=floor_ms,
         bound_by="bytes" if bytes_s >= ops_s else "operations")
@@ -729,6 +779,8 @@ def check_kernels(torch, calls, thr: float, dev):
           f"({1e6 * t_ops:.4f} us); launch floor {1e3 * floor_ms:.2f} us",
           flush=True)
     for name, r in report.items():
+        if name == "conv3x3_bias_act":
+            continue  # check_conv3x3 printed its line
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         tol = ("exact" if name == "nms_keep" else
                f"(atol, rtol) bf16 {TOLERANCE[(name, 'bfloat16')]} "
@@ -737,12 +789,108 @@ def check_kernels(torch, calls, thr: float, dev):
                 if "ms_simt" in r else "")
         if "floor_ms" in r:
             simt = f" launch_floor_ms={r['floor_ms']:.4f}"
+        if name == "bias_silu":
+            print(f"bias_silu: {r['path_calls']} calls a step on the path, "
+                  f"{r['calls'] - r['path_calls']} more from the F.conv2d "
+                  "outputs at the k=3 kernel's calls", flush=True)
         print(f"kernel {name}: calls/step={r['calls']} max_abs_err "
               f"bf16={r['max_abs_err']:.3g} f32={r['max_abs_err_f32']:.3g} "
               f"(tolerance {tol}) kernel_ms={r['ms']:.4f}{simt} "
               f"plain_ms={r['plain_ms']:.4f} library_ms={lib} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
     return report
+
+
+def check_conv3x3(torch, calls, sweep: bool = False) -> dict:
+    """Phase 3's k=3 part: every recorded call (bf16) through the k=3
+    kernel against its plain version (CONV3X3_ULP / CONV3X3_ATOL); times of
+    the kernel, its plain version, the library call (`F.conv2d` with the
+    bias, then `F.silu`) and the route it replaced (`F.conv2d`, then the
+    bias+SiLU kernel), each call's bound; with `sweep`, each distinct call
+    at every built tile. Returns the report fields."""
+    import torch.nn.functional as F
+    from zero_latency_yolo_tpu_torch.ops import act_cuda, conv3x3_cuda
+    err = 0.0
+    max_ulp = 0
+    ms = plain_ms = lib_ms = old_ms = bound_ms = bytes_s = ops_s = 0.0
+    print("conv3x3 path calls (bf16; us per call): N H W Cin ldx Cout s | "
+          "tile grid | kernel plain conv2d(b)+silu conv2d+bias_silu bound | "
+          "max ulp", flush=True)
+    for (x, w, b, stride), _ in calls:
+        got = conv3x3_cuda.conv3x3_bias_act(x, w, b, stride)
+        want = conv3x3_cuda.conv3x3_bias_act_plain(x, w, b, stride)
+        d = (got.float() - want.float()).abs()
+        far = d > CONV3X3_ATOL
+        ulps = ulp_distance(torch, got, want)
+        call_ulp = int(ulps[far].max()) if bool(far.any()) else 0
+        require(bool(torch.isfinite(got.float()).all())
+                and call_ulp <= CONV3X3_ULP,
+                f"conv3x3 {tuple(x.shape)} -> {w.shape[0]} s{stride}: "
+                f"{call_ulp} ulps past {CONV3X3_ATOL} (max err "
+                f"{float(d.max()):.3g})")
+        err, max_ulp = max(err, float(d.max())), max(max_ulp, call_ulp)
+        n, h, wd, cin = x.shape
+        cout = w.shape[0]
+        ho, wo = conv3x3_cuda.out_hw(h, wd, stride)
+        m = n * ho * wo
+        bl, xn = b.to(x.dtype), x.permute(0, 3, 1, 2)
+        t_k = time_ms(torch, lambda: conv3x3_cuda.conv3x3_bias_act(
+            x, w, b, stride))
+        t_lib = time_ms(torch, lambda: F.silu(F.conv2d(
+            xn, w, bl, stride=stride, padding=1)))
+        t_old = time_ms(torch, lambda: act_cuda.bias_silu(F.conv2d(
+            xn, w, stride=stride, padding=1).permute(0, 2, 3, 1).contiguous(),
+            b))
+        plain_ms += time_ms(torch, lambda: conv3x3_cuda.conv3x3_bias_act_plain(
+            x, w, b, stride), iters=10)
+        ms, lib_ms, old_ms = ms + t_k, lib_ms + t_lib, old_ms + t_old
+        # Each input read once (x's own channels, the weight, the bias),
+        # the output written once; 2 operations a multiply-add.
+        t_bytes = ((n * h * wd * cin + 9 * cin * cout + m * cout)
+                   * x.element_size() + 4 * cout) / HBM_BYTES_PER_S
+        t_ops = 2.0 * m * cout * 9 * cin / PEAK_OPS_PER_S["bfloat16"]
+        bound_ms += 1e3 * max(t_bytes, t_ops)
+        bytes_s, ops_s = bytes_s + t_bytes, ops_s + t_ops
+        plan = conv3x3_cuda.conv3x3_plan(x, w, stride)
+        print(f"  {n:3d} {h:4d} {wd:4d} {cin:4d} "
+              f"{conv3x3_cuda.pixel_stride(x):4d} {cout:4d} {stride} | "
+              f"{plan.bm}x{plan.bn} {plan.grid:4d} | {1e3 * t_k:8.2f} "
+              f"{1e3 * t_lib:8.2f} {1e3 * t_old:8.2f} "
+              f"{1e6 * max(t_bytes, t_ops):8.2f} | {call_ulp}", flush=True)
+    if sweep:
+        # Every built tile at each distinct call: the evidence for the
+        # plan's rule (ops/conv3x3_cuda.py plan_conv3x3).
+        seen = set()
+        print("conv3x3 tile sweep (us per call; * the plan's tile):",
+              flush=True)
+        for (x, w, b, stride), _ in calls:
+            key = (tuple(x.shape), conv3x3_cuda.pixel_stride(x), w.shape[0],
+                   stride)
+            if key in seen:
+                continue
+            seen.add(key)
+            plan = conv3x3_cuda.conv3x3_plan(x, w, stride)
+            row = []
+            for tile in conv3x3_cuda.TILES:
+                if tile[1] > 2 * max(w.shape[0], 8):
+                    continue
+                t = time_ms(torch, lambda: conv3x3_cuda.conv3x3_bias_act(
+                    x, w, b, stride, tiles=tile))
+                mark = "*" if tile == (plan.bm, plan.bn) else ""
+                row.append(f"{mark}{tile[0]}x{tile[1]} {1e3 * t:.2f}")
+            print(f"  {key}: " + "; ".join(row), flush=True)
+    out = dict(calls=len(calls), max_abs_err=err, max_ulp=max_ulp,
+               max_abs_err_f32=None, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, old_route_ms=old_ms, bound_ms=bound_ms,
+               bound_by="bytes" if bytes_s >= ops_s else "operations")
+    print(f"kernel conv3x3_bias_act: calls/step={len(calls)} max_abs_err "
+          f"bf16={err:.3g}, max ulps past {CONV3X3_ATOL} {max_ulp} "
+          f"(tolerance {CONV3X3_ULP} ulp) kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"(F.conv2d with bias + F.silu) old_route_ms={old_ms:.4f} "
+          f"(F.conv2d + bias_silu) bound_ms={bound_ms:.4f} "
+          f"({out['bound_by']})", flush=True)
+    return out
 
 
 def _iou_to(d, boxes: np.ndarray) -> np.ndarray:
@@ -1126,19 +1274,22 @@ def write_weight_files(tree, directory) -> dict:
 
 def launch_counts() -> dict:
     from zero_latency_yolo_tpu_torch.ops import (act_cuda, conv1x1_cuda,
-                                                 conv_int8_cuda, nms_cuda)
+                                                 conv3x3_cuda, conv_int8_cuda,
+                                                 nms_cuda)
     return {"nms_keep": nms_cuda.launches,
             "conv1x1_bias_act": conv1x1_cuda.launches,
             "conv1x1_wgmma": conv1x1_cuda.launches_by_route["wgmma"],
             "bias_silu": act_cuda.launches,
+            "conv3x3_bias_act": conv3x3_cuda.launches,
             "conv_int8": conv_int8_cuda.launches}
 
 
 def reset_launch_counts() -> None:
     from zero_latency_yolo_tpu_torch.ops import (act_cuda, conv1x1_cuda,
-                                                 conv_int8_cuda, nms_cuda)
+                                                 conv3x3_cuda, conv_int8_cuda,
+                                                 nms_cuda)
     nms_cuda.launches = conv1x1_cuda.launches = act_cuda.launches = 0
-    conv_int8_cuda.launches = 0
+    conv_int8_cuda.launches = conv3x3_cuda.launches = 0
     conv1x1_cuda.launches_by_route = {r: 0 for r in conv1x1_cuda.ROUTES}
 
 
@@ -1272,7 +1423,7 @@ def frame_cache_phase(torch, engine, cfg, smi_line: str) -> dict:
             "frames")
     n_det = [len(r.detections) for r in engine.complete(got)]
     engine.complete(want)
-    require(all(launches[k] > 0 for k in PATH3),
+    require(all(launches[k] > 0 for k in PATH4),
             f"a kernel was not launched by dispatch_from_cache: {launches}")
     print(f"dispatch_from_cache batch 8 ({fh}x{fw} frames in the {max_h}x"
           f"{max_w} cache) equal to the last bit to dispatch on the "
@@ -1372,7 +1523,7 @@ def frame_cache_phase(torch, engine, cfg, smi_line: str) -> dict:
 def server_load(torch, device: str, smi_line: str, cache: bool,
                 engine=None, config: Path = CONFIG, slo_ms=None,
                 label=None, before=None, tweak=None, also=None,
-                kernels=PATH3) -> dict:
+                kernels=PATH4) -> dict:
     """One load of the server phase (see the module docstring) on a fresh
     DetectionServer, with the device frame cache or without it, and its
     gates. `config` is the config file served, `slo_ms` replaces its
@@ -1665,7 +1816,11 @@ def reset_and_read(fn) -> dict:
 
 
 def require_launched(launches: dict, label: str, tensor_cores: bool = True,
-                     kernels=PATH3):
+                     kernels=None):
+    """Every kernel of the path launched: `kernels`, else those of a bf16
+    path (`tensor_cores`: its 1x1 convs all on the tensor cores) or of an
+    f32 one."""
+    kernels = kernels or (PATH4 if tensor_cores else PATH3)
     require(all(launches[k] > 0 for k in kernels),
             f"a kernel was not launched on the {label} path: {launches}")
     if tensor_cores:
@@ -1772,7 +1927,8 @@ def ladder_phase(torch, smi_line: str) -> dict:
         frames_d, hs, ws = staged_batch(torch, game, bucket, dev)
         calls = record_path_calls(eng16, frames_d, hs, ws, 640)
         require(len(calls["conv1x1_bias_act"]) == 24
-                and len(calls["bias_silu"]) == 39
+                and len(calls["conv3x3_bias_act"]) == K3_CALLS
+                and len(calls["bias_silu"]) == 1
                 and len(calls["nms_keep"]) == 1,
                 f"unexpected path: {[(n, len(c)) for n, c in calls.items()]}")
         (boxes, _, _, _), _ = calls["nms_keep"][0]
@@ -1917,9 +2073,11 @@ def variants_phase(torch, smi_line: str) -> dict:
     launches = reset_and_read(lambda: eng.infer_batch(treqs))
     print(f"variant auto@32 (bf16, split C2f): launches a step {launches}",
           flush=True)
-    require(launches["conv1x1_bias_act"] == 50 and launches["bias_silu"] == 47
-            and launches["nms_keep"] == 1,
-            f"split C2f launches a step {launches}, not 50 / 47 / 1")
+    require(launches["conv1x1_bias_act"] == 50
+            and launches["conv3x3_bias_act"] == K3_CALLS
+            and launches["bias_silu"] == 9 and launches["nms_keep"] == 1,
+            f"split C2f launches a step {launches}, not 50 / {K3_CALLS} / 9 "
+            "/ 1")
     require_launched(launches, "auto@32")
     ref_cfg = load_config(CONFIG)
     ref_cfg.tpu.dtype = "float32"
@@ -2106,10 +2264,12 @@ INT8_BUSY_BATCHES = (1, 8, 16)
 PROFILEZ_CAPTURES = 3
 PROFILEZ_SECONDS = 0.25
 PROFILEZ_DELAY = 1.0
-# int8 a step for yolov8n (the int8 convs; the unquantized stem and head
-# keep 6 1x1 convs, 13 bias+SiLU passes, and NMS runs once).
+# int8 a step for yolov8n in bf16 (the int8 convs; the unquantized stem and
+# head keep 6 1x1 convs, 12 k=3 convs on the k=3 kernel, the stem's
+# bias+SiLU, and NMS runs once).
 INT8_STEP_LAUNCHES = {"conv_int8": 44, "conv1x1_bias_act": 6,
-                      "conv1x1_wgmma": 6, "bias_silu": 13, "nms_keep": 1}
+                      "conv1x1_wgmma": 6, "bias_silu": 1,
+                      "conv3x3_bias_act": 12, "nms_keep": 1}
 PEAK_INT8_OPS_PER_S = 1979e12
 # The card's calibration against the JAX package's: int8 steps a later
 # conv's scale may move (int8_calibration_gate).
@@ -3070,30 +3230,9 @@ def record_mesh_calls(engine, frames_d, hs, ws) -> dict:
     """The inputs that data row 0 of a meshed engine hands each kernel's
     plain version in one plain bf16 step of its rows (record_path_calls on
     the row's placed tree: the channel-sharded shapes)."""
-    from zero_latency_yolo_tpu_torch.models import yolov8 as ym
-    from zero_latency_yolo_tpu_torch.ops import nms as nms_mod
-    calls = {"conv1x1_bias_act": [], "bias_silu": [], "nms_keep": []}
-    saved = (ym.conv1x1_bias_act_plain, ym.bias_silu_plain,
-             nms_mod.nms_keep_plain)
-
-    def recorder(name, fn):
-        def rec(*args, **kwargs):
-            calls[name].append((args, kwargs))
-            return fn(*args, **kwargs)
-        return rec
-
-    ym.conv1x1_bias_act_plain = recorder("conv1x1_bias_act", saved[0])
-    ym.bias_silu_plain = recorder("bias_silu", saved[1])
-    nms_mod.nms_keep_plain = recorder("nms_keep", saved[2])
-    try:
-        engine._build_step(MESH_BATCH, plain=True)(
-            engine._params[0], frames_d, hs, ws,
-            engine._row_class_weights[0], engine.config.confidence_threshold,
-            engine.config.nms_threshold)
-    finally:
-        (ym.conv1x1_bias_act_plain, ym.bias_silu_plain,
-         nms_mod.nms_keep_plain) = saved
-    return calls
+    return recording_calls(lambda: engine._build_step(MESH_BATCH, plain=True)(
+        engine._params[0], frames_d, hs, ws, engine._row_class_weights[0],
+        engine.config.confidence_threshold, engine.config.nms_threshold))
 
 
 def mesh_phase(torch, smi_line: str) -> dict:
@@ -3135,7 +3274,7 @@ def mesh_phase(torch, smi_line: str) -> dict:
     single_wall = wall_ms(torch, single_step)
     out = {"launches": {n: 0 for n in ("nms_keep", "conv1x1_bias_act",
                                        "conv1x1_wgmma", "bias_silu",
-                                       "conv_int8")},
+                                       "conv3x3_bias_act", "conv_int8")},
            "report": {}}
     real = pt_mesh.available_devices
     try:
@@ -3742,8 +3881,10 @@ LOADTEST_ARGS = ("--streams", "8", "--fps", "60", "--duration", "4",
                  "bfloat16")
 SOAK_ARGS = ("--streams", "4", "--duration", "8", "--fault", "0.05")
 TRACK_ARGS = ("--frames", "300", "--targets", "4")
-# The launches of one f32 step of the deployed model (phase 3's counts).
-STEP_LAUNCHES = {"conv1x1_bias_act": 24, "bias_silu": 39, "nms_keep": 1}
+# The launches of one f32 step of the deployed model (its k=3 convs run
+# as F.conv2d + bias+SiLU: the k=3 kernel takes bf16 calls only).
+STEP_LAUNCHES = {"conv1x1_bias_act": 24, "bias_silu": 39,
+                 "conv3x3_bias_act": 0, "nms_keep": 1}
 
 
 def detect_lines_gate(want: list, got: list, conf: float, nms: float,
@@ -4010,7 +4151,7 @@ def _loadtest(smi_line: str) -> dict:
     require(0 <= short <= SERVER_SLACK + overflows,
             f"loadtest: {short} frames neither served nor counted")
     lt = rep["kernel_launches"]
-    require(all(lt[k] > 0 for k in PATH3),
+    require(all(lt[k] > 0 for k in PATH4),
             f"a kernel was not launched by the load test's server: {lt}")
     require(lt["conv1x1_wgmma"] == lt["conv1x1_bias_act"],
             f"bf16 1x1 convs off the tensor cores in the load test: {lt}")
@@ -4524,10 +4665,11 @@ TRACE_TOL = 0.15
 
 
 def _step_launches(c2f_form: str) -> dict:
-    """The kernel launches of one yolov8n step in its C2f form."""
-    if c2f_form == "split":
-        return {"conv1x1_bias_act": 50, "bias_silu": 47, "nms_keep": 1}
-    return dict(STEP_LAUNCHES)
+    """The kernel launches of one yolov8n bf16 step in its C2f form (the
+    split form adds a bias+SiLU tail a C2f block)."""
+    return {"conv1x1_bias_act": 50 if c2f_form == "split" else 24,
+            "conv3x3_bias_act": K3_CALLS,
+            "bias_silu": 9 if c2f_form == "split" else 1, "nms_keep": 1}
 
 
 def measure_tools_phase(torch, smi_line: str) -> dict:
@@ -4785,10 +4927,12 @@ def main() -> None:
                                        for s in range(4, 12)])
             calls = record_path_calls(engine, frames_d, hs, ws)
             require(len(calls["conv1x1_bias_act"]) == 24
-                    and len(calls["bias_silu"]) == 39
+                    and len(calls["conv3x3_bias_act"]) == K3_CALLS
+                    and len(calls["bias_silu"]) == 1
                     and len(calls["nms_keep"]) == 1,
                     f"unexpected path: {[(n, len(c)) for n, c in calls.items()]}")
-            report = check_kernels(torch, calls, cfg.nms_threshold, dev)
+            report = check_kernels(torch, calls, cfg.nms_threshold, dev,
+                                   sweep=True)
             torch.cuda.synchronize()
         del calls
 
@@ -4804,7 +4948,7 @@ def main() -> None:
         results += [r for rs in engine.complete_many(pend) for r in rs]
         torch.cuda.synchronize()
         counts = launch_counts()
-        launches = {n: counts[n] for n in PATH3}
+        launches = {n: counts[n] for n in PATH4}
         by_route = dict(conv1x1_cuda.launches_by_route)
         print(f"main path: {len(results)} results from 5 steps, launches "
               f"{launches}, conv1x1 by route {by_route}", flush=True)
@@ -4813,6 +4957,14 @@ def main() -> None:
                 f"a kernel was not launched on the main path: {launches}")
         require(by_route["wgmma"] == launches["conv1x1_bias_act"],
                 f"bf16 1x1 convs off the tensor cores: {by_route}")
+        # Every bf16 k=3 call the plan sends to the k=3 kernel ran on it
+        # (38 a step; only the stem's bias+SiLU is left), in every step.
+        steps = launches["nms_keep"]
+        require(launches["conv3x3_bias_act"] == K3_CALLS * steps
+                and launches["bias_silu"] == steps,
+                f"k=3 launches {launches['conv3x3_bias_act']} and "
+                f"bias+SiLU {launches['bias_silu']} in {steps} steps, not "
+                f"{K3_CALLS} and 1 a step")
         ndet = sum(len(r.detections) for r in results)
         require(ndet > 0, "no detections on the main path")
         require(all(0.0 <= v <= 1.0 for r in results for d in r.detections
@@ -5003,9 +5155,14 @@ def main() -> None:
             if name == "nms_keep" else {}),
          **({"launches_by_route": by_route, "ms_simt": report[name]["ms_simt"]}
             if name == "conv1x1_bias_act" else {}),
+         **({k: report[name][k] for k in ("max_ulp", "old_route_ms")}
+            if name == "conv3x3_bias_act" else {}),
+         **({"path_calls": report[name]["path_calls"]}
+            if name == "bias_silu" else {}),
          **({"at_yolov8s_640_b16": {k: s640[name][k] for k in (
              "calls", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}} if name in s640 else {}),
+             "library_ms", "old_route_ms") if k in s640[name]}}
+            if name in s640 else {}),
          **({k: report[name][k] for k in (
              "batch", "calls", "max_ulp", "not_bit_equal", "elements",
              "library_calls", "ms_library_calls")}

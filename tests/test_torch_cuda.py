@@ -45,13 +45,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import torch_nms_cases  # noqa: E402
-from chip_smoke import ulp_distance  # noqa: E402
+from chip_smoke import CONV3X3_ATOL, CONV3X3_ULP, ulp_distance  # noqa: E402
 from test_torch_serving_shapes import (  # noqa: E402
-    INT8_N416_CONV_B1, S640_BIAS_SILU_B1, S640_CONV1X1_B1,
-    SERVING_BIAS_SILU_B8, SERVING_CONV1X1_B8, SPLIT_N416_BIAS_SILU_B1,
-    SPLIT_N416_CONV1X1_B1)
+    INT8_N416_CONV_B1, N416_CONV3X3, S640_BIAS_SILU_B1, S640_CONV1X1_B1,
+    S640_CONV3X3, SERVING_BIAS_SILU_B8, SERVING_CONV1X1_B8,
+    SPLIT_N416_BIAS_SILU_B1, SPLIT_N416_CONV1X1_B1)
 from zero_latency_yolo_tpu_torch.ops import (  # noqa: E402
-    _build, act_cuda, conv1x1_cuda, conv_int8_cuda, nms_cuda)
+    _build, act_cuda, conv1x1_cuda, conv3x3_cuda, conv_int8_cuda, nms_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -270,6 +270,90 @@ def test_bias_silu_serving_shapes(dev, shape, dtype):
         atol=1e-5, rtol=2.0 ** -7)
     torch.testing.assert_close(got.float(), act_cuda.bias_silu_plain(y, b).float(),
                                **tol)
+
+
+def _conv3x3_inputs(dev, n, h, w, cin, ldx, cout, seed=0):
+    """x (n, h, w, cin) bf16, a channel slice of a (.., ldx) tensor when ldx
+    > cin (as a C2f's y[..., c:]); an OIHW weight in channels-last memory
+    (the K-major matrix place_params lays out); an f32 bias."""
+    g = torch.Generator().manual_seed(seed + h * 7 + cin * 13 + cout)
+    full = torch.randn(n, h, w, ldx, generator=g).to(dev, torch.bfloat16)
+    x = full[..., ldx - cin:]
+    wt = (torch.randn(cout, cin, 3, 3, generator=g) / (3 * cin ** 0.5)).to(
+        dev, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    return x, wt, torch.randn(cout, generator=g).to(dev)
+
+
+def _check_conv3x3(x, w, b, stride, tiles=()):
+    """One launch; within CONV3X3_ULP bf16 ulps of the plain version, or
+    CONV3X3_ATOL where a cancelling sum leaves a value near 0 (the same f32
+    sums in another order, SiLU with the hardware's exp2 and reciprocal,
+    one rounding each)."""
+    n0 = conv3x3_cuda.launches
+    got = conv3x3_cuda.conv3x3_bias_act(x, w, b, stride, tiles=tiles)
+    torch.cuda.synchronize()
+    assert conv3x3_cuda.launches == n0 + 1
+    want = conv3x3_cuda.conv3x3_bias_act_plain(x, w, b, stride)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert got.is_contiguous() and bool(torch.isfinite(got.float()).all())
+    far = (got.float() - want.float()).abs() > CONV3X3_ATOL
+    ulps = torch.where(far, ulp_distance(torch, got, want), 0)
+    assert int(ulps.max()) <= CONV3X3_ULP
+
+
+@pytest.mark.parametrize("batch,shape", [(8, s) for s in N416_CONV3X3]
+                         + [(16, s) for s in S640_CONV3X3],
+                         ids=lambda v: str(v))
+def test_conv3x3_serving_shapes(dev, batch, shape):
+    """Every k=3 call of the yolov8n 416 b8 and yolov8s 640 b16 bf16 steps
+    on the k=3 kernel."""
+    h, w, cin, ldx, cout, stride = shape
+    x, wt, b = _conv3x3_inputs(dev, batch, h, w, cin, ldx, cout)
+    assert conv3x3_cuda.conv3x3_plan(x, wt, stride).route == "wgmma"
+    _check_conv3x3(x, wt, b, stride)
+
+
+@pytest.mark.parametrize("n,h,w,cin,ldx,cout,stride", [
+    (1, 7, 9, 16, 16, 16, 1),     # M 63: one ragged row tile
+    (1, 5, 13, 16, 16, 24, 1),    # M 65; Cout 24 in a 32 tile
+    (3, 13, 11, 32, 64, 40, 2),   # odd sizes at stride 2; a channel slice
+    (2, 5, 5, 8, 8, 8, 1),        # Cin 8: eight taps a K tile
+    (2, 9, 9, 16, 16, 4, 1),      # Cout 4 (a 1x4 mesh shard) in an 8 tile
+    (3, 9, 15, 64, 64, 200, 2),   # Cout 200: two N tiles, the last ragged
+    (1, 3, 3, 256, 512, 136, 1),  # M 9, K 2304, Cout 136
+    (2, 26, 26, 512, 512, 72, 2)], ids=lambda v: str(v))
+def test_conv3x3_edges(dev, n, h, w, cin, ldx, cout, stride):
+    x, wt, b = _conv3x3_inputs(dev, n, h, w, cin, ldx, cout)
+    _check_conv3x3(x, wt, b, stride)
+
+
+@pytest.mark.parametrize("tile", sorted(conv3x3_cuda.TILES),
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+def test_conv3x3_every_built_tile(dev, tile):
+    """Each built (BM, BN) instance at a shape with ragged M and N edges."""
+    x, wt, b = _conv3x3_inputs(dev, 3, 19, 23, 48, 96, 3 * tile[1] // 2 + 8)
+    _check_conv3x3(x, wt, b, 1, tiles=tile)
+    _check_conv3x3(x, wt, b, 2, tiles=tile)
+
+
+def test_conv3x3_refuses_without_fallback(dev):
+    """A CUDA call the plan does not route to the kernel raises KernelError
+    and launches nothing: f32, the stem's Cin 3, a misaligned view, a
+    weight not laid out K-major. Nothing falls back to F.conv2d."""
+    x, wt, b = _conv3x3_inputs(dev, 2, 8, 8, 16, 16, 16)
+    cases = [(x.float(), wt.float()),
+             (torch.zeros(2, 8, 8, 3, device=dev, dtype=torch.bfloat16),
+              torch.zeros(16, 3, 3, 3, device=dev, dtype=torch.bfloat16)
+              .contiguous(memory_format=torch.channels_last)),
+             (torch.zeros(2, 8, 8, 20, device=dev,
+                          dtype=torch.bfloat16)[..., 4:], wt),
+             (x, wt.contiguous())]
+    n0 = conv3x3_cuda.launches
+    for xx, ww in cases:
+        assert conv3x3_cuda.conv3x3_plan(xx, ww, 1).route == "conv2d"
+        with pytest.raises(_build.KernelError, match="does not take"):
+            conv3x3_cuda.conv3x3_bias_act(xx, ww, b, 1)
+    assert conv3x3_cuda.launches == n0
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -968,8 +1052,8 @@ def test_virtual_mesh_on_the_card_matches_single_device(dev, monkeypatch,
 
 
 def _sharded_calls(variant, size, model):
-    """The 1x1 and bias+SiLU calls of one plain bf16 forward at batch 1 on
-    a virtual 1 x `model` mesh over cuda:0: their inputs, at the sharded
+    """The 1x1, bias+SiLU and k=3 calls of one plain bf16 forward at batch 1
+    on a virtual 1 x `model` mesh over cuda:0: their inputs, at the sharded
     shapes the mesh gives each kernel."""
     from zero_latency_yolo_tpu_torch.models import yolov8 as ym
     from zero_latency_yolo_tpu_torch.models.weights import params_from_jax
@@ -978,8 +1062,9 @@ def _sharded_calls(variant, size, model):
     mesh = pt_mesh.make_mesh(1, model, [torch.device("cuda", 0)] * model)
     row = pt_mesh.row_params(mesh, pt_mesh.shard_params(
         params_from_jax(ym.init_params(0, spec)), mesh, torch.bfloat16), 0)
-    calls = {"conv1x1": [], "bias_silu": []}
-    saved = ym.conv1x1_bias_act_plain, ym.bias_silu_plain
+    calls = {"conv1x1": [], "bias_silu": [], "conv3x3": []}
+    saved = (ym.conv1x1_bias_act_plain, ym.bias_silu_plain,
+             ym.conv3x3_bias_act_plain)
 
     def rec(name, fn):
         def f(*args, **kw):
@@ -988,13 +1073,15 @@ def _sharded_calls(variant, size, model):
         return f
     ym.conv1x1_bias_act_plain = rec("conv1x1", saved[0])
     ym.bias_silu_plain = rec("bias_silu", saved[1])
+    ym.conv3x3_bias_act_plain = rec("conv3x3", saved[2])
     try:
         x = torch.rand(1, size, size, 3, device="cuda")
         with torch.inference_mode():
             ym.forward_decoded(row, spec, x, dtype=torch.bfloat16, plain=True,
                                conv_fn=ym.tp_conv)
     finally:
-        ym.conv1x1_bias_act_plain, ym.bias_silu_plain = saved
+        (ym.conv1x1_bias_act_plain, ym.bias_silu_plain,
+         ym.conv3x3_bias_act_plain) = saved
     return calls
 
 
@@ -1002,8 +1089,9 @@ def _sharded_calls(variant, size, model):
 @pytest.mark.parametrize("model", [2, 4])
 def test_kernels_at_every_sharded_shape(dev, variant, size, model):
     """Each 1x1 call of the sharded forward (Cout / model, down to 8
-    columns at yolov8n's narrowest C2f cv1 at model 4) on the tensor cores
-    and each bias+SiLU call against their plain versions, in bf16."""
+    columns at yolov8n's narrowest C2f cv1 at model 4) on the tensor cores,
+    each bias+SiLU call and each k=3 call on the k=3 kernel (Cout / model,
+    down to 4 at model 4) against their plain versions, in bf16."""
     calls = _sharded_calls(variant, size, model)
     couts = set()
     for (x, w, b), kw in calls["conv1x1"]:
@@ -1018,6 +1106,13 @@ def test_kernels_at_every_sharded_shape(dev, variant, size, model):
         torch.testing.assert_close(act_cuda.bias_silu(y, b),
                                    act_cuda.bias_silu_plain(y, b),
                                    atol=1e-5, rtol=2.0 ** -7)
+    k3_couts = set()
+    for (x, w, b, stride), _ in calls["conv3x3"]:
+        assert conv3x3_cuda.conv3x3_plan(x, w, stride).route == "wgmma"
+        k3_couts.add(int(w.shape[0]))
+        _check_conv3x3(x, w, b, stride)
+    assert len(calls["conv3x3"]) == 38 * model
+    assert min(k3_couts) == (16 if variant == "yolov8n" else 32) // model
     torch.cuda.synchronize()
     print(f"{variant}@{size} model {model}: {len(calls['conv1x1'])} 1x1 "
           f"calls (Cout {sorted(couts)}), {len(calls['bias_silu'])} "

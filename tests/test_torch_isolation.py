@@ -68,6 +68,16 @@ def test_isolation_covers_the_training_tools():
         "train/checkpoint", "train/loop")} <= names
 
 
+def test_isolation_covers_the_k3_kernel():
+    """The fused k=3 kernel's wrapper and plan, the launch table that
+    counts it and its phase probe are among the files the import checks
+    above walk."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {f"zero_latency_yolo_tpu_torch/{m}.py" for m in (
+        "ops/conv3x3_cuda", "ops/launches", "ops/_build",
+        "conv3x3_probe")} <= names
+
+
 def test_isolation_covers_the_measurement_tools():
     """The measurement tools and the launch table they share with
     chip_smoke.py are among the files the import checks above walk."""

@@ -64,6 +64,37 @@ def _path_calls(batch: int, variant: str = "yolov8n", size: int = 416,
     return conv, act
 
 
+@functools.cache
+def _bf16_counts(batch: int, variant: str = "yolov8n", size: int = 416,
+                 c2f: str = "slice"):
+    """(1x1 calls, k=3 kernel calls, bias+SiLU calls) of one plain bf16
+    forward: every k=3 conv but the stem's (Cin 3) takes the fused k=3
+    kernel, so bias+SiLU is left the stem and the split C2f's tails."""
+    spec = ym.get_spec(variant, 4)
+    params = place_params(params_from_jax(ym.init_params(0, spec)), "cpu",
+                          torch.bfloat16, c2f_split=(c2f == "split"))
+    counts = [0, 0, 0]
+    names = ("conv1x1_bias_act_plain", "conv3x3_bias_act_plain",
+             "bias_silu_plain")
+    saved = [getattr(ym, n) for n in names]
+
+    def counting(i):
+        def rec(*a, **k):
+            counts[i] += 1
+            return saved[i](*a, **k)
+        return rec
+    for i, n in enumerate(names):
+        setattr(ym, n, counting(i))
+    try:
+        with torch.inference_mode():
+            ym.forward_raw(params, spec, torch.rand(batch, size, size, 3),
+                           dtype=torch.bfloat16, plain=True, c2f=c2f)
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(ym, n, fn)
+    return tuple(counts)
+
+
 @pytest.mark.parametrize("c2f", ["slice", "split"])
 def test_int8_path_has_the_recorded_calls(c2f):
     """The int8 step (yolov8n at 416, tpu.quantize_int8) calls the int8
@@ -109,14 +140,17 @@ def test_int8_path_has_the_recorded_calls(c2f):
 
 @pytest.mark.parametrize("batch", BATCHES)
 def test_path_has_the_recorded_calls(batch):
-    """24 1x1 convs and 39 bias+SiLU passes a step; at batch 8 exactly the
-    shapes the card tests (tests/test_torch_cuda.py) run."""
+    """24 1x1 convs and 39 bias+SiLU passes a step (f32); at batch 8
+    exactly the shapes the card tests (tests/test_torch_cuda.py) run. In
+    bf16 the k=3 kernel takes 38 of the 39 (all but the stem's): 24 1x1, 38
+    k=3 and 1 bias+SiLU calls a step."""
     conv, act = _path_calls(batch)
     assert len(conv) == 24 and len(act) == 39
     want_conv = [(m * batch // 8, cin, cout, a)
                  for m, cin, cout, a in SERVING_CONV1X1_B8]
     assert conv == want_conv
     assert act == [(batch,) + s[1:] for s in SERVING_BIAS_SILU_B8]
+    assert _bf16_counts(batch) == (24, 38, 1)
 
 
 @pytest.mark.parametrize("index", range(24))
@@ -145,9 +179,13 @@ def test_ladder_paths_plan_onto_the_tensor_cores(variant, size, batch, c2f,
     within the 32-bit indexing guard, and each bias+SiLU pass onto the
     vector kernel; the calls are the recorded ones (24 + 39 a step in the
     slice form, 50 + 47 in the split form: cv1 as two convs and cv2 as
-    2 + n a block, one tail a block)."""
+    2 + n a block, one tail a block). In bf16 the k=3 kernel takes the 38
+    k=3 convs but the stem's: 24 + 38 + 1 a step (slice), 50 + 38 + 9
+    (split)."""
     conv, act = _path_calls(1, variant, size, c2f)
     assert (len(conv), len(act)) == ((50, 47) if c2f == "split" else (24, 39))
+    assert _bf16_counts(1, variant, size, c2f) == (
+        (50, 38, 9) if c2f == "split" else (24, 38, 1))
     if conv_b1 is not None:
         assert conv == conv_b1 and act == act_b1
     for m, cin, cout, _ in conv:

@@ -33,23 +33,17 @@
 //   written as 16-byte rows (masked element stores where Cout is not a
 //   multiple of 8, as for the Cout = 4 class tips).
 // 128-byte swizzle: a K tile is 64 bf16 = 128 bytes a row; the TMA maps and
-// the wgmma descriptors both use it, and every tile starts 1024-aligned.
+// the wgmma descriptors both use it, and every tile starts 1024-aligned
+// (sm90.cuh).
 
-#include <cuda.h>  // CUtensorMap and its enums only: cuTensorMapEncodeTiled
-                   // is looked up at run time, so no -lcuda
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 #include <chrono>
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kBM = 64;  // rows of a tile: one warpgroup's m64
-constexpr int kBK = 64;  // bf16 in one 128-byte swizzled row
-constexpr int kConsumers = 128;
+constexpr int kBK = kSwizzleK;  // bf16 in one 128-byte swizzled row
 constexpr int kThreads = kConsumers + 32;  // one warpgroup + a producer warp
 
 // Shared memory of one block; the kernel aligns its base to 1024 bytes, so
@@ -62,160 +56,6 @@ struct Smem {
   uint64_t full[STAGES];
   uint64_t empty[STAGES];
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// Returns once the phase of parity `parity` has completed. A wait of more
-// than 2^32 cycles (over two seconds) traps: a pipeline fault then fails
-// the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long t0 = clock64();
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1ll << 32)) __trap();
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// One TMA tile load: box at (c0 = column, c1 = row) of a 2-D map into dst,
-// completing `bytes` on bar.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile with 128-byte swizzle: rows of 128
-// bytes, 8-row groups 1024 bytes apart (SBO); LBO is unused for this layout.
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
-         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// The consumer warpgroup's own barrier (id 1; 0 is __syncthreads).
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-
-// d[64 x N] += A[64 x 16] * B[16 x N]: both operands K-major in shared
-// memory, f32 accumulators (N / 2 a thread).
-template <int N>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a,
-                                           uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<8>(float (&d)[4], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3"
-      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<16>(float (&d)[8], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ float silu(float z) { return z / (1.0f + expf(-z)); }
 
 template <int BN, int STAGES>
 __global__ void __launch_bounds__(kThreads)
@@ -331,51 +171,8 @@ conv1x1_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 }
 
 // ---------------------------------------------------------------------------
-// Host side: tensor maps and the launch.
+// Host side: the launch.
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                  cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A row-major (rows, cols) bf16 matrix, read in boxes of box_rows x 64 with
-// the 128-byte swizzle; reads past an edge fill zeros.
-bool encode_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-                int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t estrides[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int BN, int STAGES>
 int launch(const CUtensorMap& map_x, const CUtensorMap& map_w,

@@ -538,8 +538,10 @@ def place_params(params: Params, device, dtype: torch.dtype,
                  c2f_split: bool = False, stem_s2d: bool = False,
                  shard: Optional[Tuple[int, int]] = None) -> Params:
     """Copy device-form params to `device`: kernels in `dtype` (channels-last
-    OIHW, so convs write NHWC; a 1x1 matrix K-major, the layout the
-    tensor-core 1x1 kernel reads, laid out here once), biases in f32.
+    OIHW, so convs write NHWC, and a k=3 kernel's bytes are the K-major
+    (Cout, 9 * Cin) matrix the k=3 kernel reads; a 1x1 matrix K-major, the
+    layout the tensor-core 1x1 kernel reads, laid out here once), biases in
+    f32.
 
     c2f_split: also lay out each C2f block's pieces for the split form
     (models/yolov8.py `_c2f`), once: `cv1_pieces`, the two column halves of

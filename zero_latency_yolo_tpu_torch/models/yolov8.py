@@ -16,15 +16,19 @@ functions, names and parameter layout:
   `ops/quant.py`) runs as the int8 conv kernel with the activation
   quantize, the dequant, bias and SiLU fused (`ops/conv_int8_cuda.py`); a
   folded k=1 s=1 conv runs as the 1x1 matmul kernel with its bias and SiLU
-  fused (`ops/conv1x1_cuda.py`); every other conv runs `F.conv2d` without
-  bias, then the bias+SiLU kernel (`ops/act_cuda.py`). `plain=True` routes
-  all three through their plain PyTorch versions instead (the reference
-  the kernels are checked against). `conv_fn` replaces `_conv` (same
+  fused (`ops/conv1x1_cuda.py`); a folded k=3 conv with SiLU over a bf16
+  activation that `ops/conv3x3_cuda.py` `conv3x3_plan` takes runs as the
+  k=3 implicit-GEMM kernel with its bias and SiLU fused; every other conv
+  (f32, the stem's Cin 3, act=False) runs `F.conv2d` without bias, then
+  the bias+SiLU kernel (`ops/act_cuda.py`). `plain=True` routes all four
+  through their plain PyTorch versions instead (the reference the kernels
+  are checked against). `conv_fn` replaces `_conv` (same
   signature): the hook activation calibration records through, and the
   one tensor parallelism runs through (`tp_conv`: each channel-sharded
   block's slices on their devices, gathered along channels).
 - In bf16 the kernels add the bias and apply SiLU in f32 registers and round
-  once; the JAX package's bf16 serving path does the tail in bf16.
+  once (the k=3 kernel also keeps its conv's sum in f32 up to that one
+  rounding); the JAX package's bf16 serving path does the tail in bf16.
 - Training (`forward_train_raw`) runs the JAX package's training branch on
   the unfolded tree in its JAX layout (`models/weights.py`
   `train_params_from_jax`): `F.conv2d` in the compute dtype and an f32 tail
@@ -54,6 +58,8 @@ import torch.nn.functional as F
 
 from ..ops.act_cuda import bias_silu, bias_silu_plain
 from ..ops.conv1x1_cuda import conv1x1_bias_act, conv1x1_bias_act_plain
+from ..ops.conv3x3_cuda import (conv3x3_bias_act, conv3x3_bias_act_plain,
+                                conv3x3_plan)
 from ..ops.conv_int8_cuda import conv_int8, conv_int8_plain, dynamic_scale
 
 Params = Dict[str, Any]
@@ -290,6 +296,10 @@ def _conv(p: Params, x: torch.Tensor, stride: int = 1, act: bool = True,
                              f"{CONV1X1_ROUTES}")
         return y.view(b, h, w, -1)
     wt = p["w"]
+    if (act and wt.shape[-1] == 3 and x.dtype == torch.bfloat16
+            and conv3x3_plan(x, wt, stride).route == "wgmma"):
+        fn = conv3x3_bias_act_plain if plain else conv3x3_bias_act
+        return fn(x, wt, p["b"], stride)
     pad = (wt.shape[-1] - 1) // 2
     y = F.conv2d(x.permute(0, 3, 1, 2), wt, stride=stride, padding=pad)
     # No copy when the conv wrote channels-last (it does for channels-last

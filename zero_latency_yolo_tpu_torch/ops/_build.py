@@ -47,6 +47,8 @@ _SIGNATURES = {
                              ctypes.c_int),
     "zlt_conv1x1_wgmma": ([_P, _P, _P, _P] + [ctypes.c_int] * 8 + [_P],
                           ctypes.c_int),
+    "zlt_conv3x3_wgmma": ([_P, _P, _P, _P] + [ctypes.c_int] * 12 + [_P],
+                          ctypes.c_int),
     "zlt_tma_encode_us": ([_P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int], ctypes.c_double),
     "zlt_bias_silu_wave_threads": ([ctypes.c_int], ctypes.c_int),

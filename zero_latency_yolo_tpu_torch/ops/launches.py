@@ -10,7 +10,8 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
-from . import act_cuda, conv1x1_cuda, conv_int8_cuda, nms_cuda
+from . import (act_cuda, conv1x1_cuda, conv3x3_cuda, conv_int8_cuda,
+               nms_cuda)
 
 # The device functions of each kernel, as the profiler names them: a kernel
 # event whose name holds one of these is that kernel's (`chip_smoke.py`'s
@@ -19,6 +20,7 @@ KERNEL_SYMBOLS: Dict[str, Tuple[str, ...]] = {
     "nms_keep": ("nms_keep_kernel",),
     "conv1x1_bias_act": ("conv1x1_wgmma_kernel", "mm_bias_act_kernel"),
     "bias_silu": ("bias_silu_vec_kernel", "bias_silu_kernel"),
+    "conv3x3_bias_act": ("conv3x3_wgmma_kernel",),
     "conv_int8": ("conv_int8_kernel",),
 }
 
@@ -40,4 +42,5 @@ def launch_counts() -> Dict[str, int]:
             "conv1x1_bias_act": conv1x1_cuda.launches,
             **{f"conv1x1_{r}": by_route[r] for r in conv1x1_cuda.ROUTES},
             "bias_silu": act_cuda.launches,
+            "conv3x3_bias_act": conv3x3_cuda.launches,
             "conv_int8": conv_int8_cuda.launches}
