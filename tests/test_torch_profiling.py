@@ -1,6 +1,6 @@
 """utils/profiling.py of the port on the CPU: the torch.profiler capture
-behind /profilez (bounded, single-flight, gated), the trace context, the
-named ranges and the host/device split."""
+behind /profilez (bounded, single-flight, gated, with the span recorder's
+spans.json), the trace context and the named ranges."""
 
 import json
 import threading
@@ -52,7 +52,7 @@ def test_capture_records_another_threads_operators(tmp_path):
         worker.join()
     assert out["ok"] and out["seconds"] == 0.3
     assert Path(out["dir"]).parent == tmp_path
-    assert [f["name"] for f in out["files"]] == ["trace.json"]
+    assert [f["name"] for f in out["files"]] == ["spans.json", "trace.json"]
     events = json.loads((Path(out["dir"]) / "trace.json").read_text())
     names = {e.get("name") for e in events["traceEvents"]}
     assert "aten::mm" in names and "zlt-test-range" in names
@@ -104,11 +104,3 @@ def test_trace_context_writes_a_chrome_trace(tmp_path):
             torch.ones(8).sum()
     events = json.loads((Path(d) / "trace.json").read_text())["traceEvents"]
     assert any(e.get("name") == "zlt-phase" for e in events)
-
-
-def test_device_host_split_on_the_cpu():
-    out = profiling.device_host_split(lambda: torch.ones(32, 32) @ torch.ones(
-        32, 32), iters=3)
-    assert set(out) == {"host_dispatch_ms", "total_ms", "device_ms"}
-    assert out["total_ms"] >= out["host_dispatch_ms"] > 0
-    assert 0 <= out["device_ms"] <= out["total_ms"]

@@ -685,7 +685,8 @@ def test_profilez_routes_on_the_port_server(fresh, tmp_path):
     assert code == 200 and out["ok"] and out["seconds"] == 0.1
     assert Path(out["dir"]).parent == tmp_path / "torch-trace"
     names = [f["name"] for f in out["files"]]
-    assert names == ["trace.json"] and out["files"][0]["size"] > 0
+    assert names == ["spans.json", "trace.json"]
+    assert all(f["size"] > 0 for f in out["files"])
     assert json.loads((Path(out["dir"]) / "trace.json").read_text())
     code, st = _http_json(web, "GET", "/profilez")
     assert code == 200 and st["last"]["dir"] == out["dir"]

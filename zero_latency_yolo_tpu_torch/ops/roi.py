@@ -43,10 +43,13 @@ JPEG entropy decode itself stays on the host (runtime/frames.py, cv2).
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import LIVE, Span
 
 
 def _bucket(n: int, rungs: Tuple[int, ...], cap: int,
@@ -242,6 +245,7 @@ class DeviceFrameCache:
         self._newly_frozen: list = []
         self.flushes = 0
         self.writes_flushed = 0
+        self.bytes_flushed = 0  # bytes the flushes uploaded
         self.writes_shed = 0
 
     # ------------------------------------------------------------ slot mgmt
@@ -378,6 +382,10 @@ class DeviceFrameCache:
         if not self._pending_kf and not self._pending:
             return
         touched = set(self._pending_kf) | {p[0] for p in self._pending}
+        marks = LIVE.marks  # the recorded step's (utils/profiling), or None
+        if marks is not None:
+            marks.append((Span.FLUSH, time.perf_counter()))
+            counts = (self.writes_flushed, self.bytes_flushed)
         try:
             self._flush_writes_locked()
         except Exception:
@@ -389,6 +397,10 @@ class DeviceFrameCache:
             # device touch.
             self._cache_dead = True
             raise
+        if marks is not None:
+            marks.append((~Span.FLUSH, time.perf_counter(),
+                          self.writes_flushed - counts[0],
+                          self.bytes_flushed - counts[1]))
 
     def _freeze_slots_locked(self, slots) -> None:
         active = set(self._slot_of.values())
@@ -430,6 +442,7 @@ class DeviceFrameCache:
                             [slots.view(np.uint8)] + [f for _, f in local])
                         _paste_full_many(shard, dev[8 * k:].view(k, h, w, 3),
                                          dev[:8 * k].view(torch.int64))
+                        self.bytes_flushed += 8 * k + k * h * w * 3
                 self.flushes += 1
                 self.writes_flushed += len(part)
         # Group pending writes by ROI bucket class BEFORE chunking, as the
@@ -466,6 +479,7 @@ class DeviceFrameCache:
                         off += p[5].size
                     _paste_many(shard, regions,
                                 [(s,) + p[1:5] for s, p in local])
+                    self.bytes_flushed += off
                 self.flushes += 1
                 self.writes_flushed += len(pend)
         self._pending_bytes = 0
@@ -562,8 +576,14 @@ class DeviceFrameCache:
         should only launch device work, not wait for it: a caller that
         gathers out of the cache inside fn (a new tensor) can run the step
         on it after the lock is released — later writes are queued behind
-        that gather on the same stream."""
+        that gather on the same stream. In a recorded step
+        (utils/profiling) the wait to acquire the lock is a span."""
+        marks = LIVE.marks
+        if marks is not None:
+            marks.append((Span.LOCK_WAIT, time.perf_counter()))
         with self._lock:
+            if marks is not None:
+                marks.append((~Span.LOCK_WAIT, time.perf_counter()))
             slots, hs, ws = self._resolve_locked(client_ids)
             self._flush_locked()
             return fn(self._cache, slots, hs, ws)
@@ -583,6 +603,7 @@ class DeviceFrameCache:
                                          np.uint8)])
             self.flushes = 0
             self.writes_flushed = 0
+            self.bytes_flushed = 0
 
     def run_locked(self, fn):
         """Run fn(cache) under the cache lock, after the flush (the tensor,

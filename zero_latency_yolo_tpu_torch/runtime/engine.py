@@ -92,6 +92,7 @@ from ..ops.quant import (calibrate_activations, quantize_params, set_x_scales,
 from ..parallel import mesh as mesh_mod
 from ..protocol import Detection
 from ..utils.logging import get_logger
+from ..utils.profiling import LIVE, Span
 from ..utils.stats import Counter, RollingStats
 
 log = get_logger("engine")
@@ -611,6 +612,9 @@ class InferenceEngine:
 
         @torch.inference_mode()
         def step(params, frames, heights, widths, class_w, conf, iou):
+            marks = LIVE.marks  # the recorded step's (utils/profiling)
+            if marks is not None:
+                marks.append((Span.PREPROCESS, time.perf_counter()))
             with precision():
                 x = resize(frames, heights, widths)
                 hf = heights.to(torch.float32)
@@ -628,11 +632,15 @@ class InferenceEngine:
                                       dtype=torch.float32, device=hf.device)
                     sy = ((size / hf) / scale)[:, None]
                 src_wh = torch.stack([wf, hf], dim=-1)
+                if marks is not None:
+                    marks.append((Span.MODEL, time.perf_counter()))
                 if select == "perlevel":
                     boxes_l, probs_l = forward_decoded_levels(
                         params, spec, x, **model_kw)
                     if sy is not None:
                         boxes_l = [_unstretch(b, sy) for b in boxes_l]
+                    if marks is not None:
+                        marks.append((Span.POST, time.perf_counter()))
                     out = nms_ops.postprocess_batch_levels(
                         boxes_l, probs_l, class_w, conf, iou, scale, pad,
                         src_wh, topk, plain=plain)
@@ -640,10 +648,15 @@ class InferenceEngine:
                     pred = forward_decoded(params, spec, x, **model_kw)
                     if sy is not None:
                         pred = _unstretch(pred, sy)
+                    if marks is not None:
+                        marks.append((Span.POST, time.perf_counter()))
                     out = nms_ops.postprocess_batch(
                         pred, class_w, conf, iou, scale, pad, src_wh, topk,
                         plain=plain)
-                return nms_ops.pack_outputs(out)
+                packed = nms_ops.pack_outputs(out)
+            if marks is not None:
+                marks.append((~Span.POST, time.perf_counter()))
+            return packed
 
         return step
 
@@ -966,6 +979,9 @@ class InferenceEngine:
         if self._simulating():
             return self._sim_pending(requests, size)
         t0 = time.perf_counter()
+        marks = LIVE.marks  # the recorded step's (utils/profiling)
+        if marks is not None:  # ends in _launched
+            marks.append((Span.LAUNCH, t0))
         # Shed frames larger than every configured bucket.
         oversized = [r for r in requests
                      if _pick_bucket(self.frame_buckets, r.height, r.width)
@@ -1050,8 +1066,11 @@ class InferenceEngine:
         mesh `out` is the list of the data rows' outputs: on CUDA each row
         is copied into its rows of one pinned output, at every depth, and
         one event recorded on each device behind its copies; on the CPU the
-        rows are concatenated."""
+        rows are concatenated. In a recorded step (utils/profiling) the
+        step's launch span ends here, and on one device the event is a
+        timing event that ends the step's device interval."""
         event = host = None
+        marks = LIVE.marks
         if isinstance(out, list):
             if not out[0].is_cuda:
                 out = torch.cat(out)
@@ -1077,8 +1096,12 @@ class InferenceEngine:
                 host = torch.empty(out.shape, dtype=out.dtype,
                                    pin_memory=True)
                 host.copy_(out, non_blocking=True)
-            event = torch.cuda.Event()
+            event = torch.cuda.Event(enable_timing=marks is not None)
             event.record()
+            if marks is not None:
+                marks.append((Span.DEVICE_STEP, event))
+        if marks is not None:
+            marks.append((~Span.LAUNCH, time.perf_counter()))
         return PendingBatch(requests=requests, out=out, t0=t0,
                             n=len(requests), staging_key=staging_key,
                             staging_buf=staging_buf, event=event, host=host,
@@ -1231,6 +1254,9 @@ class InferenceEngine:
         size = self._rung(size)
         if gathered is None or self._simulating():
             return self._sim_pending(requests, size)
+        marks = LIVE.marks  # the recorded step's (utils/profiling)
+        if marks is not None:  # ends in _launched
+            marks.append((Span.LAUNCH, time.perf_counter()))
         if self.mesh is not None:
             rows = _row_inputs(gathered.frames, gathered.shw)
             outs = self._step_rows(

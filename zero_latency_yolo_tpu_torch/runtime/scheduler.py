@@ -29,7 +29,10 @@ with a single coherent batcher:
   holds `device_gate`, so that a profiler capture (`utils/profiling.py`,
   the server's /profilez) starts and stops only between them: stopping
   torch.profiler while a thread is inside an operator can crash the
-  process.
+  process;
+- while a profiler runs, each dispatched group is a recorded step of the
+  span recorder (`utils/profiling.SPANS`): its root span `batcher.step`
+  and each request's wait from `enqueue_t` to the step.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from collections import OrderedDict, deque
 from typing import Callable, Dict, List, Optional
 
 from ..utils.logging import get_logger
+from ..utils.profiling import SPANS, armed
 from .engine import (
     EngineResult, InferenceEngine, InferenceRequest, _pick_batch,
     group_by_bucket,
@@ -371,7 +375,7 @@ class ContinuousBatcher:
         # rung is warmed at every batch bucket when the SLO is armed.
         eff = self.engine.effective_serve_size
 
-        def launch(group, fn):
+        def launch(group, fn, rows=0):
             # Per-group isolation: a batch can split into several device
             # dispatches (cached + hosted, frame buckets, accuracy-floor
             # rungs). One group's failure (a CUDA error, a refused
@@ -380,6 +384,9 @@ class ContinuousBatcher:
             # PendingBatches on the floor: results never completed,
             # frames not counted, staging buffers leaked past the
             # free-list. Failed groups are counted as drops here.
+            token = (SPANS.step_begin(
+                rows or _pick_batch(self.engine.batch_buckets, len(group)),
+                group, self.engine.device) if armed() else None)
             try:
                 out.append(fn(group))
             except Exception:  # noqa: BLE001
@@ -387,6 +394,9 @@ class ContinuousBatcher:
                 self.engine.frames_dropped.inc(len(group))
                 log.exception("group dispatch failed (n=%d); group dropped",
                               len(group))
+            finally:
+                if token is not None:
+                    SPANS.step_end(token)
 
         if cached:
             if cache is None:
@@ -412,7 +422,8 @@ class ContinuousBatcher:
                 launch(group,
                        lambda g, sz=size, ids=cids: self.engine.dispatch_gathered(
                            g, cache.dispatch_with(
-                               self.engine.gather_from_cache, ids), size=sz))
+                               self.engine.gather_from_cache, ids), size=sz),
+                       b)
         if hosted:
             # Group by frame bucket first: with non-nested buckets (e.g.
             # mixed portrait/landscape) no single bucket may cover the whole

@@ -28,7 +28,8 @@ Here the management API lives in-process with direct access to live state:
     POST /profilez?seconds=N            on-demand profiler capture of the
                                         LIVE serving process (bounded,
                                         single-flight), when a profiler is
-                                        wired (profile_fn)
+                                        wired (profile_fn); the port writes
+                                        trace.json and the spans' spans.json
 
 Implemented on asyncio streams — no web framework dependency. The dashboard
 HTML itself is optional and not rebuilt; every consumer of the reference's
